@@ -6,9 +6,17 @@ RoPE on split halves, GQA, SwiGLU; attention by plain softmax, by flash
 attention (the CUDA kernel K1 on the card), over a contiguous KV cache, or
 over the paged KV cache of the serving engine.
 
-Weights live in ``cfg.dtype`` (norm scales in f32). flax kept f32 params and
-cast every kernel to ``cfg.dtype`` before each product, so holding them in
-``cfg.dtype`` computes the same thing with half the memory in bf16.
+Parameters live in ``param_dtype`` (norm scales always in f32) and every
+projection, the embedding and ``lm_head`` cast their weight to ``cfg.dtype``
+at use, as flax does with ``param_dtype=jnp.float32``. ``param_dtype``
+defaults to ``cfg.dtype``: for inference that computes the same thing with
+half the memory in bf16, and the cast is skipped. Training needs f32
+parameters (``param_dtype=torch.float32``): AdamW applied to bf16 weights
+drops every update smaller than one bf16 ulp.
+
+With ``cfg.remat``, grad enabled and no KV cache, each decoder layer runs
+under ``torch.utils.checkpoint`` (flax's ``nn.remat``): its activations are
+recomputed in the backward, so K1 runs twice per layer and step.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.ops.attention import (
     NEG_INF,
@@ -107,6 +116,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return out.to(x.dtype)
 
 
+def _cast(w: torch.Tensor, dtype) -> torch.Tensor:
+    return w if w.dtype == dtype else w.to(dtype)
+
+
+class Linear(nn.Linear):
+    """Bias-free ``nn.Linear`` whose weight is kept in ``param_dtype`` and
+    cast to ``dtype`` at use (flax ``Dense(dtype=, param_dtype=)``)."""
+
+    def __init__(self, in_features: int, out_features: int, dtype,
+                 param_dtype, device=None):
+        super().__init__(in_features, out_features, bias=False,
+                         device=device, dtype=param_dtype)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, _cast(self.weight, self.compute_dtype))
+
+
 def lora_delta(x, bank, idx):
     """Per-sequence batched LoRA. bank = {"a": [K, r, Din], "b": [K, Dout,
     r], "scale"}; idx [B] selects each sequence's adapter (slot 0 = zero
@@ -132,12 +159,12 @@ def _masked_attention(q, k, v, mask):
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device=None, param_dtype=None):
         super().__init__()
         self.cfg = cfg
         h, hk, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        lin = lambda i, o: nn.Linear(i, o, bias=False, device=device,
-                                     dtype=cfg.dtype)
+        lin = lambda i, o: Linear(i, o, cfg.dtype, param_dtype or cfg.dtype,
+                                  device)
         self.q_proj = lin(cfg.hidden_size, h * d)
         self.k_proj = lin(cfg.hidden_size, hk * d)
         self.v_proj = lin(cfg.hidden_size, hk * d)
@@ -211,10 +238,10 @@ class Attention(nn.Module):
 
 
 class Mlp(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device=None, param_dtype=None):
         super().__init__()
-        lin = lambda i, o: nn.Linear(i, o, bias=False, device=device,
-                                     dtype=cfg.dtype)
+        lin = lambda i, o: Linear(i, o, cfg.dtype, param_dtype or cfg.dtype,
+                                  device)
         self.gate_proj = lin(cfg.hidden_size, cfg.intermediate_size)
         self.up_proj = lin(cfg.hidden_size, cfg.intermediate_size)
         self.down_proj = lin(cfg.intermediate_size, cfg.hidden_size)
@@ -224,16 +251,16 @@ class Mlp(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device=None, param_dtype=None):
         super().__init__()
         if cfg.num_experts > 0:
             raise NotImplementedError("MoE Mlp is not ported yet")
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
                                        cfg.dtype, device)
-        self.self_attn = Attention(cfg, device)
+        self.self_attn = Attention(cfg, device, param_dtype)
         self.post_attention_layernorm = RMSNorm(
             cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype, device)
-        self.mlp = Mlp(cfg, device)
+        self.mlp = Mlp(cfg, device, param_dtype)
 
     def forward(self, x, positions, kv_cache=None, cache_index=None,
                 paged=None, lora=None, lora_idx=None):
@@ -247,20 +274,24 @@ class DecoderLayer(nn.Module):
 
 class LlamaModel(nn.Module):
     """Parameters are created on ``device``: the card unless the caller
-    names one (no CUDA and no device raises)."""
+    names one (no CUDA and no device raises). ``param_dtype`` is the
+    storage dtype of the projections, embedding and ``lm_head`` (default
+    ``cfg.dtype``; training uses torch.float32)."""
 
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device=None, param_dtype=None):
         super().__init__()
         device = resolve_device(device)
+        param_dtype = param_dtype or cfg.dtype
         self.cfg = cfg
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
-                                         device=device, dtype=cfg.dtype)
+                                         device=device, dtype=param_dtype)
         self.layers = nn.ModuleList(
-            [DecoderLayer(cfg, device) for _ in range(cfg.num_layers)])
+            [DecoderLayer(cfg, device, param_dtype)
+             for _ in range(cfg.num_layers)])
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype,
                             device)
-        self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False,
-                                 device=device, dtype=cfg.dtype)
+        self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size, cfg.dtype,
+                              param_dtype, device)
 
     def forward(self, input_ids, positions=None, kv_caches=None,
                 cache_index=None, paged_kv=None, page_table=None,
@@ -277,12 +308,15 @@ class LlamaModel(nn.Module):
                                     and cache_index is not None) else 0
             positions = start + torch.arange(input_ids.shape[1],
                                              device=device)
-        x = self.embed_tokens(input_ids)
+        # Gather rows, then cast: the same values as casting the table first.
+        x = _cast(self.embed_tokens(input_ids), cfg.dtype)
         lanes = None
         if paged_kv is not None:
             from ray_tpu_torch.llm._internal.paged import write_lanes
 
             lanes = write_lanes(write_mask, device)
+        remat = (cfg.remat and torch.is_grad_enabled() and kv_caches is None
+                 and paged_kv is None)
         new_caches = []
         for i, layer in enumerate(self.layers):
             cache = kv_caches[i] if kv_caches is not None else None
@@ -291,8 +325,12 @@ class LlamaModel(nn.Module):
                 paged = {"kv_pages": paged_kv[i], "page_table": page_table,
                          "write_lanes": lanes, "seq_lens": seq_lens}
             layer_lora = (lora or {}).get(f"layers_{i}")
-            x, new_cache = layer(x, positions, cache, cache_index, paged,
-                                 layer_lora, lora_idx)
+            args = (x, positions, cache, cache_index, paged, layer_lora,
+                    lora_idx)
+            if remat:
+                x, new_cache = checkpoint(layer, *args, use_reentrant=False)
+            else:
+                x, new_cache = layer(*args)
             new_caches.append(new_cache)
         logits = self.lm_head(self.norm(x))
         if kv_caches is not None or paged_kv is not None:

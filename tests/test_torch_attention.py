@@ -1,7 +1,7 @@
 """Port parity: ray_tpu_torch.ops.attention against ray_tpu.ops.attention.
 
-The same numpy inputs go through the JAX functions (the Pallas flash kernel
-in interpret mode on the CPU, as tests/test_attention.py runs it) and the
+The same numpy inputs go through the JAX functions (the Pallas flash
+kernels, forward and backward, in interpret mode on the CPU, as tests/test_attention.py runs it) and the
 port's plain PyTorch versions. Tolerance: f32 atol=rtol=2e-5, the JAX
 tests' own (tests/test_attention.py:28); gradients 5e-4 (:78)."""
 
@@ -119,10 +119,60 @@ def test_block_attn_helpers_match_jax(use_mask):
     np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **TOL)
 
 
+@pytest.mark.parametrize("sq,blocks,hkv,causal", [
+    *[(256, 64, hkv, causal) for hkv in (4, 2, 1) for causal in (True, False)],
+    (200, 64, 2, True),   # ragged: the Pallas blocks shrink to divide 200
+    (200, 64, 2, False),
+])
+def test_flash_gradients_match_pallas_backward(sq, blocks, hkv, causal):
+    """Gradients of the port's flash_attention (FlashAttention with
+    flash_attention_bwd_plain on the CPU) against jax.grad through JAX's
+    flash_attention, whose custom_vjp runs the Pallas K2 (_flash_dq_kernel)
+    and K3 (_flash_dkv_kernel) in interpret mode, as
+    tests/test_attention.py:59-79 runs them."""
+    q, k, v = _qkv(b=1, sq=sq, h=4, hkv=hkv, d=32, seed=6)
+    w = np.random.default_rng(7).standard_normal(q.shape).astype(np.float32)
+
+    def loss_j(q, k, v):
+        out = jattn.flash_attention(q, k, v, causal=causal, block_q=blocks,
+                                    block_k=blocks, interpret=True)
+        return (out * w).sum()
+
+    gj = jax.grad(loss_j, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = [t.requires_grad_() for t in _t(q, k, v)]
+    (tattn.flash_attention(tq, tk, tv, causal=causal)
+     * torch.from_numpy(w)).sum().backward()
+    for a, b in zip((tq.grad, tk.grad, tv.grad), gj):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=5e-4,
+                                   rtol=5e-4)
+
+
+@pytest.mark.parametrize("hkv,causal,skv", [(4, True, 96), (2, False, 80),
+                                            (1, True, 96)])
+def test_plain_flash_backward_matches_autograd_of_reference(hkv, causal,
+                                                            skv):
+    """flash_attention_bwd_plain against autograd through the port's
+    attention_reference, with the forward's own out and lse."""
+    q, k, v = _qkv(b=2, sq=96, h=4, hkv=hkv, d=32, skv=skv, seed=8)
+    dout = np.random.default_rng(9).standard_normal(q.shape).astype(
+        np.float32)
+    tq, tk, tv = [t.requires_grad_() for t in _t(q, k, v)]
+    ref = torch.autograd.grad(
+        tattn.attention_reference(tq, tk, tv, causal=causal), (tq, tk, tv),
+        torch.from_numpy(dout))
+    q_, k_, v_ = _t(q, k, v)
+    out, lse = tattn.flash_attention_fwd_plain(q_, k_, v_, causal)
+    got = tattn.flash_attention_bwd_plain(q_, k_, v_, out, lse,
+                                          torch.from_numpy(dout), causal)
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=2e-5)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_plain_flash_gradients_match_jax(causal):
-    """On the CPU the plain flash path is differentiable by autograd; its
-    gradients match JAX's through the reference."""
+    """On the CPU the flash path's backward (flash_attention_bwd_plain)
+    matches JAX's gradients through the reference."""
     q, k, v = _qkv(b=1, sq=64, h=4, hkv=2, d=32, seed=5)
 
     def loss_ref(q, k, v):
@@ -159,7 +209,27 @@ def test_flash_kernel_matches_plain_on_cuda(cuda, dtype, atol):
 
 
 @pytest.mark.cuda
-def test_flash_backward_raises_on_cuda(cuda):
-    q, k, v = [t.to(cuda).requires_grad_() for t in _t(*_qkv(sq=16))]
-    with pytest.raises(NotImplementedError, match="K2/K3"):
-        tattn.flash_attention(q, k, v)
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 5e-2),
+                                        (torch.float32, 5e-4)])
+def test_flash_backward_kernels_match_plain_on_cuda(cuda, dtype, atol):
+    """K2 and K3 on the card against flash_attention_bwd_plain on the same
+    inputs, ragged S=200 with GQA 2:1 (bf16: P and dS are rounded to bf16
+    before their products, as in the Pallas kernels)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = [t.to(cuda, dtype) for t in _t(*_qkv(sq=200, hkv=2, d=64))]
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)
+                       ).to(cuda, dtype)
+    out, lse = tattn.flash_fwd_kernel(q, k, v, causal=True)
+    delta = tattn.flash_bwd_delta(out, dout)
+    before = (tattn.flash_bwd_dq_kernel.launches,
+              tattn.flash_bwd_dkv_kernel.launches)
+    dq = tattn.flash_bwd_dq_kernel(q, k, v, dout, lse, delta, causal=True)
+    dk, dv = tattn.flash_bwd_dkv_kernel(q, k, v, dout, lse, delta,
+                                        causal=True)
+    assert (tattn.flash_bwd_dq_kernel.launches,
+            tattn.flash_bwd_dkv_kernel.launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    refs = tattn.flash_attention_bwd_plain(q, k, v, out, lse, dout, True)
+    for got, ref in zip((dq, dk, dv), refs):
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                                   rtol=atol)

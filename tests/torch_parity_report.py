@@ -17,17 +17,20 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
+import optax  # noqa: E402
 import torch  # noqa: E402
 
 from ray_tpu.llm._internal import engine as jeng  # noqa: E402
 from ray_tpu.llm._internal import paged as jpaged  # noqa: E402
 from ray_tpu.models import llama as jllama  # noqa: E402
 from ray_tpu.ops import attention as jattn  # noqa: E402
+from ray_tpu.train import step as jstep  # noqa: E402
 from ray_tpu_torch.llm._internal import engine as teng  # noqa: E402
 from ray_tpu_torch.llm._internal import paged as tpaged  # noqa: E402
 from ray_tpu_torch.models import llama as tllama  # noqa: E402
 from ray_tpu_torch.models.convert import convert_params  # noqa: E402
 from ray_tpu_torch.ops import attention as tattn  # noqa: E402
+from ray_tpu_torch.train import step as tstep  # noqa: E402
 
 
 def err(a, b):
@@ -61,6 +64,20 @@ def main():
                  "`attention_reference`",
                  err(tattn.attention_reference(t(q), t(k), t(v)), ref),
                  2e-5))
+
+    # Gradients: jax.grad through flash_attention runs the Pallas K2 and K3
+    # in interpret mode; the port's FlashAttention runs the plain backward.
+    w = rng.standard_normal(q.shape, dtype=np.float32)
+    gj = jax.grad(lambda q, k, v: (jattn.flash_attention(
+        q, k, v, block_q=64, block_k=64, interpret=True) * w).sum(),
+        argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (t(x).requires_grad_() for x in (q, k, v))
+    (tattn.flash_attention(tq, tk, tv) * t(w)).sum().backward()
+    for name, g_t, g_j, kern in (("dq", tq.grad, gj[0], "_flash_dq_kernel"),
+                                 ("dk", tk.grad, gj[1], "_flash_dkv_kernel"),
+                                 ("dv", tv.grad, gj[2], "_flash_dkv_kernel")):
+        rows.append((f"ops/attention.py `flash_attention_bwd_plain` ({name})",
+                     f"`{kern}` (interpret)", err(g_t, g_j), 5e-4))
 
     B, H, HK, D, PS, MP, P = 3, 8, 2, 64, 8, 4, 16
     dq = rng.standard_normal((B, 1, H, D), dtype=np.float32)
@@ -101,6 +118,36 @@ def main():
                      "`LlamaModel.apply`",
                      err(got, jm.apply({"params": jparams}, jnp.asarray(ids))),
                      1e-4))
+
+    # Three AdamW steps of the tiny f32 train step from the same weights.
+    ids = np.random.default_rng(0).integers(0, 512, (2, 32), dtype=np.int32)
+    for impl in ("reference", "flash"):
+        jcfg_t = dataclasses.replace(jllama.LlamaConfig.tiny(),
+                                     attention_impl=impl)
+        jm = jllama.LlamaModel(jcfg_t)
+        opt = optax.adamw(1e-3)
+        jstate = jstep.init_train_state(jm, opt, jnp.asarray(ids))
+        tm = tllama.LlamaModel(dataclasses.replace(
+            tllama.LlamaConfig.tiny(), attention_impl=impl), device="cpu",
+            param_dtype=torch.float32)
+        tllama.load_params(tm, convert_params(
+            jax.tree.map(np.asarray, jstate.params)))
+        topt = tstep.adamw(tm.parameters(), 1e-3)
+        tstate = tstep.init_train_state(tm, topt, t(ids), device="cpu")
+        jfn = jstep.make_train_step(jm, opt, donate=False)
+        tfn = tstep.make_train_step(tm, topt)
+        for _ in range(3):
+            jstate, jloss = jfn(jstate, jnp.asarray(ids), jnp.asarray(ids))
+            tstate, tloss = tfn(tstate, t(ids).long(), t(ids).long())
+        rows.append((f"train/step.py loss after 3 steps ({impl}), relative",
+                     "`make_train_step` + optax.adamw",
+                     abs(tloss.item() - float(jloss)) / abs(float(jloss)),
+                     1e-5))
+        jsd = convert_params(jax.tree.map(np.asarray, jstate.params))
+        rows.append((f"train/step.py weights after 3 steps ({impl})",
+                     "`make_train_step` + optax.adamw",
+                     max(err(p.detach(), jsd[n])
+                         for n, p in tm.named_parameters()), 1e-4))
 
     prompts = {"a": [1, 2, 3], "b": [9, 8, 7, 6, 5], "c": [100, 3],
                "d": [11, 22, 33, 44]}
