@@ -218,10 +218,18 @@ def k2k3_case(attn, label, b, s, h, hkv, d, dtype, causal, seed, dev,
     dq = attn.flash_bwd_dq_kernel(q, k, v, do, lse, delta, causal=causal)
     dk, dv = attn.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, causal=causal)
     refs = attn.flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+    # Deterministic gradients: a second launch on the same inputs gives
+    # the same bits (no atomics, a fixed order of every sum).
+    again = (attn.flash_bwd_dq_kernel(q, k, v, do, lse, delta, causal=causal),
+             *attn.flash_bwd_dkv_kernel(q, k, v, do, lse, delta,
+                                        causal=causal))
     torch.cuda.synchronize()
     row = {"phase": "k2k3_check", "case": label, "shape": [b, s, h, hkv, d],
-           "dtype": str(dtype).split(".")[-1], "causal": causal}
-    ok = True
+           "dtype": str(dtype).split(".")[-1], "causal": causal,
+           "bitwise_repeat": all(torch.equal(x, y)
+                                 for x, y in zip((dq, dk, dv), again))}
+    ok = row["bitwise_repeat"]
+    del again
     for name, kern, got, ref in (("dq", "K2", dq, refs[0]),
                                  ("dk", "K3", dk, refs[1]),
                                  ("dv", "K3", dv, refs[2])):
@@ -256,6 +264,12 @@ def k2k3_case(attn, label, b, s, h, hkv, d, dtype, causal, seed, dev,
         row["dkv_ms"] = cuda_ms(
             lambda q, k, v, o, do, lse, dl: attn.flash_bwd_dkv_kernel(
                 q, k, v, do, lse, dl, causal=causal), sets)
+        # Delta sits outside the pair but inside SDPA's backward, so the
+        # pair is read against the library as K2 + K3 + Delta.
+        row["delta_ms"] = cuda_ms(
+            lambda q, k, v, o, do, lse, dl: attn.flash_bwd_delta(o, do),
+            sets)
+        row["pair_delta_ms"] = row["dq_ms"] + row["dkv_ms"] + row["delta_ms"]
         # The plain version computes dQ, dK and dV together.
         row["plain_ms"] = cuda_ms(
             lambda q, k, v, o, do, lse, dl: attn.flash_attention_bwd_plain(
@@ -789,6 +803,8 @@ def main():
               True, 13, dev, time_it=False)
     k2k3_case(attn, "ragged_bf16_d32", 1, 77, 4, 2, 32, torch.bfloat16,
               True, 14, dev, time_it=False)
+    k2k3_case(attn, "main_shape_bf16_d64", 2, 2048, 32, 8, 64,
+              torch.bfloat16, True, 15, dev, time_it=False)
 
     # K4 against paged_decode_plain.
     lens = [1, 63, 64, 65, 130, 200, 511, 512]
@@ -826,11 +842,14 @@ def main():
             "library_ms")
 
     def bwd(prefix, err):
+        # library_ms is SDPA's whole backward: read it against the pair
+        # with Delta (pair_delta_ms), as that backward computes Delta too.
         return {"max_abs_err": err, "ms": k23[f"{prefix}_ms"],
                 "plain_ms": k23["plain_ms"],
                 "bound_ms": k23[f"{prefix}_bound_ms"],
                 "bound_by": k23[f"{prefix}_bound_by"],
-                "library_ms": k23["library_ms"]}
+                "library_ms": k23["library_ms"],
+                "pair_delta_ms": k23["pair_delta_ms"]}
 
     by_path = {n: {"train_8b": training[n], "serve_8b": serving[n]}
                for n in wrappers}

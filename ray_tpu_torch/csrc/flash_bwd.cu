@@ -23,21 +23,60 @@
 //   H/Hkv query heads of its group and, for each, the q tiles from the
 //   diagonal on. The Pallas kernel wrote dK/dV per expanded head and XLA
 //   summed each group through the VJP of jnp.repeat; here the group sum
-//   happens inside the block, with no atomics and in a fixed order.
+//   happens inside the block, with no atomics and in a fixed order, so the
+//   gradients are bitwise the same from run to run.
 // Keys past Skv and queries past Sq are masked, so any length works (the
 // Pallas kernels needed blocks that divide S).
 //
-// What bounds them on the H100: at the 8B training shape (B=2, S=2048,
-// H=32, D=128, causal) K2 does 6*D flops per (q, k) pair (103 GFLOP) and K3
-// 8*D (137 GFLOP) on ~120 MB, far above the card's ~295 flop/byte ridge:
-// both are bound by tensor-core operations. So every product runs on the
-// tensor cores with mma.sync m16n8k16 (bf16 in, f32 accumulate). It is the
-// simple form: tiles are loaded synchronously into padded shared memory and
-// each warp owns 16 rows of the output tile. Registers are the scarce part:
-// K3 keeps dK and dV (16 keys x D each, f32) per warp, so its inner q tile
-// is 32 rows and Q, dO, K and V fragments are read from shared memory at
-// each product instead of being held. wgmma, TMA and pipelining are later
-// work.
+// What bounds them on the H100: at the training shape (B=2, S=2048, H=32,
+// Hkv=8, D=128, causal; 2,098,176 (q, k) pairs a batch row and head) K2 does
+// 6*D flops a pair (S = Q K^T, dP = dO V^T, dQ = dS K): 103.1 GFLOP, 0.104 ms
+// at 989 TFLOP/s; K3 8*D (S^T, dP^T, dV, dK): 137.5 GFLOP, 0.139 ms. Their
+// bytes (~119 and ~102 MB, each input read once) take ~0.035 ms at 3.35
+// TB/s: both are bound by tensor-core operations, and on Hopper only wgmma
+// reaches the tensor cores' full rate. So the bf16 path is built around it:
+// - One warpgroup (4 warps, 128 threads) a block. Every product is
+//   wgmma.mma_async m64nNk16 (bf16 in, f32 accumulate) over 64-row tiles.
+//   K2: S = Q K^T and dP = dO V^T read both operands K-major from shared
+//   memory; dQ += dS K takes dS from registers (the f32 accumulator of S,
+//   rounded to bf16, is already in wgmma's A-register layout) and K as an
+//   MN-major B through the transpose bit. K3 computes the transposed scores
+//   S^T = K Q^T and dP^T = V dO^T the same way, so P^T and dS^T are A
+//   registers for dV += P^T dO and dK += dS^T Q, with dO and Q MN-major:
+//   no transpose is ever written out.
+// - Tiles in shared memory are 64 rows of DP = max(D, 64) bf16, stored as
+//   64-column blocks of 128-byte rows in the 128-byte swizzle wgmma reads
+//   (16-byte chunk c of row r at chunk c ^ (r % 8)), so one tile serves as a
+//   K-major operand (S, dP) and as an MN-major one (dQ, dV, dK). D = 32 is
+//   zero-padded to 64 columns.
+// - Loads are cp.async into a ring of 2 stages (K2: the K/V tiles; K3: the
+//   Q/dO tiles and their LSE/Delta rows), with zero fill for rows past S and
+//   columns past D. The copy of step i+1 starts right after the barrier
+//   that opens step i, so it runs under step i's products; the stage it
+//   overwrites was read by step i-1, whose wgmma groups every thread waited
+//   for before that barrier. Each thread waits for its own copies
+//   (cp.async.wait_group), makes them visible to wgmma's async proxy
+//   (fence.proxy.async), then the barrier.
+// - Inside a step the elementwise work runs under the products: S and dP
+//   are committed as two wgmma groups, and P = 2^(S scale log2(e) - LSE
+//   log2(e)) (one FFMA and one ex2 an element; the mask only on tiles that
+//   cross the diagonal or an end) is computed while dP's product runs. K3
+//   then starts dV += P^T dO before it computes dS^T.
+// - Blocks an SM: K3 holds dK and dV (64 keys x 128, f32) in 128 registers
+//   a thread, plus 32 each for S^T and dP^T (255 registers at D=128, with a
+//   few bytes spilled); K2 holds dQ in 64 plus S and dP (196). Both are
+//   held to 255 registers, so 2 blocks (8 warps) fit an SM's
+//   65,536 registers, and the shared memory is sized for 2 as well: at
+//   D=128, K2 Q + dO + 2 x (K + V) = 96 KB and K3 K + V + 2 x (Q + dO) +
+//   rows = 97 KB (+1 KB to align the tiles to 1,024 bytes), 2 x ~99 KB of
+//   the SM's 228 KB. The main path's grids (2,048 K2 blocks, 512 K3 blocks)
+//   fill 264 slots on 132 SMs; one block's elementwise work and waits run
+//   under the other's products.
+// - Causal balance: a block's work grows with the keys (K2) or queries (K3)
+//   it sees. Blocks are numbered tile-major over (head, batch), so every
+//   heaviest tile starts before any lighter one: K2's last q tiles first,
+//   K3's first kv tiles first (block k0 does work in proportion to
+//   group * (S - k0)).
 //
 // The f32 path (small shapes, parity with TF32 off) is plain FMA on
 // shared-memory tiles.
@@ -52,316 +91,626 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kThreads = 128;  // 4 warps
+constexpr int kThreads = 128;  // 4 warps: one warpgroup
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core path
+// bf16 tensor-core path: wgmma over cp.async-fed swizzled tiles
 // ---------------------------------------------------------------------------
-constexpr int kDqBQ = 64;   // K2: query rows per block, 16 per warp
-constexpr int kDqBK = 64;   // K2: keys per kv tile
-constexpr int kDkvBK = 64;  // K3: keys per block, 16 per warp
-constexpr int kDkvBQ = 32;  // K3: query rows per inner tile
+constexpr int kTile = 64;   // rows of every tile: q rows (K2), keys (K3)
+constexpr int kStages = 2;  // depth of the load ring
+constexpr int kRowBytes = 128;  // one row of a 64-column block
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_raw(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+// 16- and 4-byte asynchronous copies to shared memory; src_bytes 0 writes
+// zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
 }
 
-// c += a(16x16, row) * b(16x8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// Copy rows [r0, r0+rows) of a [S, row_stride] matrix into shared memory
-// with a padded row of LD elements; rows at or past S are zero-filled.
-template <int D, int LD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long row_stride, int r0, int rows,
-                                          int S) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < rows * kChunks; c += kThreads) {
+// Wait for this thread's copies, then make them visible to wgmma, which
+// reads shared memory through the async proxy. A barrier follows.
+__device__ __forceinline__ void cp_async_land() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Byte offset of 16-byte chunk cc (columns 8cc..8cc+7) of row r in a tile:
+// 64-column blocks of kTile 128-byte rows, chunk c of row r stored at chunk
+// c ^ (r % 8), the 128-byte swizzle (tiles start on 1,024 bytes).
+__device__ __forceinline__ uint32_t tile_off(int r, int cc) {
+  return (cc >> 3) * (kTile * kRowBytes) + r * kRowBytes +
+         (((cc & 7) ^ (r & 7)) << 4);
+}
+
+// Start copying rows [r0, r0 + kTile) of a [S, row_stride] bf16 matrix with
+// D columns into the tile at dst (DP columns); rows at or past S and
+// columns at or past D are zero-filled.
+template <int D, int DP>
+__device__ __forceinline__ void load_tile_async(uint32_t dst, const bf16* src,
+                                                long row_stride, int r0,
+                                                int S) {
+  constexpr int kChunks = DP / 8;
+#pragma unroll
+  for (int i = 0; i < kTile * kChunks / kThreads; ++i) {
+    const int c = threadIdx.x + i * kThreads;
     const int r = c / kChunks, cc = c % kChunks;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < S)
-      val = *reinterpret_cast<const uint4*>(src + (long)(r0 + r) * row_stride +
-                                            cc * 8);
-    *reinterpret_cast<uint4*>(dst + r * LD + cc * 8) = val;
+    const bool in = r0 + r < S && cc * 8 < D;
+    cp_async16(dst + tile_off(r, cc),
+               in ? src + (long)(r0 + r) * row_stride + cc * 8 : src,
+               in ? 16 : 0);
   }
 }
 
-// s = A B^T for this warp: A is 16 rows x D at `a`, B is NT*8 rows x D at
-// `b` (both in shared memory, row pitch LD). s[j] is the C fragment of
-// columns [8j, 8j+8).
-template <int D, int LD, int NT>
-__device__ __forceinline__ void mma_abt(float (&s)[NT][4], const bf16* a,
-                                        const bf16* b, int g, int c2) {
+// wgmma's shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (in 16-byte units), 128-byte swizzle (layout type 1).
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// A tile as a K-major operand (its rows are M or N, its columns the
+// reduction): k step kk (columns 16kk..16kk+15) starts 32 bytes further
+// into a 128-byte row, in 64-column block kk / 4; 8-row groups are 1,024
+// bytes apart (SBO). The swizzle is applied to the address, so the offset
+// inside the row needs no other change.
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  return make_desc(tile + (kk >> 2) * (kTile * kRowBytes) + (kk & 3) * 32, 16,
+                   1024);
+}
+
+// A tile as an MN-major B operand (its rows are the reduction, its columns
+// N; read with the transpose bit): k step kk (rows 16kk..16kk+15) starts 16
+// rows further; 64-column blocks are a block apart (LBO), 8-row groups
+// 1,024 bytes (SBO).
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  return make_desc(tile + kk * 16 * kRowBytes, kTile * kRowBytes, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N of this warpgroup's committed wgmma groups are
+// pending; groups complete in the order they were committed.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Registers an asynchronous wgmma reads or writes are pinned before it
+// starts and after its wait, so the compiler moves no access to them in
+// between.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
 #pragma unroll
-  for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ void pin(uint32_t (&r)[4][4]) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const bf16* p0 = a + g * LD + kk * 16 + c2;
-    const uint32_t af[4] = {ld32(p0), ld32(p0 + 8 * LD), ld32(p0 + 8),
-                            ld32(p0 + 8 * LD + 8)};
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const bf16* br = b + (j * 8 + g) * LD + kk * 16 + c2;
-      mma_bf16(s[j], af, ld32(br), ld32(br + 8));
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// d (+)= A B for a 64 x 64 tile, A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A B for a 64 x 64 tile, A (64 x 16) in registers, B MN-major in
+// shared memory (the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A B for a 64 x 128 tile, A (64 x 16) in registers, B MN-major in
+// shared memory (the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <int DP>
+__device__ __forceinline__ void wgmma_rs(float (&d)[DP / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (DP == 64)
+    wgmma_rs_n64(d, a, db);
+  else
+    wgmma_rs_n128(d, a, db);
+}
+
+// s = A B^T over DP columns: A and B are 64-row tiles, both K-major.
+template <int DP>
+__device__ __forceinline__ void wgmma_scores(float (&s)[32], uint32_t a,
+                                             uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk)
+    wgmma_ss_n64(s, desc_k(a, kk), desc_k(b, kk), kk > 0);
+}
+
+// acc += P B: P (64 x 64) as bf16 A fragments p[kk] for the k steps
+// kk = 0..3, B a 64-row tile read MN-major (64 x DP).
+template <int DP>
+__device__ __forceinline__ void wgmma_accumulate(float (&acc)[DP / 2],
+                                                 const uint32_t (&p)[4][4],
+                                                 uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs<DP>(acc, p[kk], desc_mn(b, kk));
+}
+
+// The bf16 A fragments of a 64 x 64 f32 accumulator. The accumulator's
+// layout (thread: rows g and g+8 of its warp's 16, columns 8j + 2c, +1) is
+// wgmma's A-register layout, k step kk holding columns 16kk..16kk+15.
+__device__ __forceinline__ void to_frags(uint32_t (&f)[4][4],
+                                         const float (&s)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      f[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// P = 2^(S sl2 - lse2) in place, with sl2 = scale log2(e) and lse2 = LSE
+// log2(e): one FFMA and one ex2 an element. K2's tile: element e of column
+// block j is row row_a + 8 (e >> 1), key col0 + 8j + (e & 1). kMask zeroes
+// P past the keys and above the diagonal: only tiles that reach either
+// need it.
+template <bool kMask>
+__device__ __forceinline__ void dq_p(float (&s)[32], const float (&lse2)[2],
+                                     float sl2, int col0, int row_a, int SKV,
+                                     int causal) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      float p = ex2(fmaf(s[4 * j + e], sl2, -lse2[r]));
+      if (kMask) {
+        const int col = col0 + j * 8 + (e & 1);
+        if (col >= SKV || (causal && col > row_a + 8 * r)) p = 0.f;
+      }
+      s[4 * j + e] = p;
+    }
+}
+
+// The same for K3's transposed tile: element e of column block j is key
+// key_a + 8 (e >> 1), query q0 + qc, qc = 8j + c2 + (e & 1), its LSE in
+// shared memory (lse_s[qc]). kMask also zeroes P past the queries.
+template <bool kMask>
+__device__ __forceinline__ void dkv_p(float (&st)[32], const float* lse_s,
+                                      float sl2, int q0, int c2, int key_a,
+                                      int SQ, int SKV, int causal) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int qc = j * 8 + c2;
+    const float2 l2 = *reinterpret_cast<const float2*>(lse_s + qc);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = e & 1;
+      float p = ex2(fmaf(st[4 * j + e], sl2, -(c ? l2.y : l2.x) * kLog2e));
+      if (kMask) {
+        const int qi = q0 + qc + c;
+        const int key = key_a + 8 * (e >> 1);
+        if (qi >= SQ || key >= SKV || (causal && key > qi)) p = 0.f;
+      }
+      st[4 * j + e] = p;
     }
   }
 }
 
-// acc += P B for this warp: P is 16 x 16*NC given as C fragments p[2*NC]
-// (rounded to bf16 here and reused as A fragments, no shared-memory round
-// trip), B is 16*NC rows x D at `b` (shared memory, row pitch LD).
-template <int D, int LD, int NC>
-__device__ __forceinline__ void mma_pb(float (&acc)[D / 8][4],
-                                       const float (&p)[2 * NC][4],
-                                       const bf16* b, int g, int c2) {
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    const uint32_t a[4] = {pack_bf16(p[2 * c][0], p[2 * c][1]),
-                           pack_bf16(p[2 * c][2], p[2 * c][3]),
-                           pack_bf16(p[2 * c + 1][0], p[2 * c + 1][1]),
-                           pack_bf16(p[2 * c + 1][2], p[2 * c + 1][3])};
-    const bf16* br = b + (c * 16 + c2) * LD + g;
-#pragma unroll
-    for (int t = 0; t < D / 8; ++t) {
-      const bf16* vp = br + t * 8;
-      mma_bf16(acc[t], a, pack_raw(vp[0], vp[LD]),
-               pack_raw(vp[8 * LD], vp[9 * LD]));
-    }
-  }
-}
-
-// Write this warp's 16 x D f32 accumulator as bf16 rows row_a (c0, c1) and
-// row_a + 8 (c2, c3) of a [S, row_stride] matrix; rows at or past S are
+// Write a 64 x DP f32 accumulator as bf16: this thread's rows row_a (d[4j],
+// d[4j+1]) and row_a + 8 (d[4j+2], d[4j+3]), columns 8j + c2, +1, of a
+// [S, row_stride] matrix; rows at or past S and columns at or past D are
 // dropped.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, long row_stride,
-                                           const float (&acc)[D / 8][4],
-                                           int row_a, int S, int c2) {
-  const int row_b = row_a + 8;
+template <int D, int DP>
+__device__ __forceinline__ void store_acc(bf16* dst, long row_stride,
+                                          const float (&acc)[DP / 2],
+                                          int row_a, int S, int c2) {
 #pragma unroll
-  for (int t = 0; t < D / 8; ++t) {
-    const int col = t * 8 + c2;
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = j * 8 + c2;
     if (row_a < S)
       *reinterpret_cast<uint32_t*>(dst + (long)row_a * row_stride + col) =
-          pack_bf16(acc[t][0], acc[t][1]);
-    if (row_b < S)
-      *reinterpret_cast<uint32_t*>(dst + (long)row_b * row_stride + col) =
-          pack_bf16(acc[t][2], acc[t][3]);
+          pack_bf16(acc[4 * j], acc[4 * j + 1]);
+    if (row_a + 8 < S)
+      *reinterpret_cast<uint32_t*>(dst + (long)(row_a + 8) * row_stride +
+                                   col) =
+          pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, bf16* __restrict__ dq,
-                     int H, int HKV, int SQ, int SKV, float scale,
-                     int causal) {
-  constexpr int LD = D + 8;  // pad 16 bytes: conflict-free fragment loads
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + kDqBQ * LD;
-  bf16* Ks = dOs + kDqBQ * LD;
-  bf16* Vs = Ks + kDqBK * LD;
+template <int DP>
+__host__ __device__ constexpr uint32_t tile_bytes() {
+  return kTile * DP * 2;
+}
 
-  // Causal: the last q tiles see the most keys, so they start first.
-  const int q0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kDqBQ;
-  const int h = blockIdx.y, b = blockIdx.z;
+// Shared memory of a block: 1,024 bytes of slack to align the tiles, then
+// the two resident tiles, kStages stages of two tiles each, and (K3) the
+// stages' LSE/Delta rows.
+template <int DP>
+constexpr size_t smem_bytes(bool rows) {
+  return 1024 + (2 + 2 * kStages) * tile_bytes<DP>() +
+         (rows ? kStages * 2 * kTile * sizeof(float) : 0);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_bwd_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v,
+                       const bf16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, bf16* __restrict__ dq,
+                       int B, int H, int HKV, int SQ, int SKV, float scale,
+                       int causal) {
+  constexpr int DP = D < 64 ? 64 : D;
+  constexpr uint32_t kBytes = tile_bytes<DP>();
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t Qs = base, dOs = base + kBytes;  // then the K/V stages
+
+  // Tile-major numbering: the last q tiles see the most keys under the
+  // causal mask, so every (head, batch)'s last tile starts first.
+  const int n_q = (SQ + kTile - 1) / kTile;
+  const int t = blockIdx.x / (H * B), hb = blockIdx.x % (H * B);
+  const int q0 = (causal ? n_q - 1 - t : t) * kTile;
+  const int h = hb % H, b = hb / H;
   const int hk = h / (H / HKV);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  const int c2 = (lane & 3) * 2;
+  const int row_a = q0 + warp * 16 + (lane >> 2);  // +8: the second row
   const long q_stride = (long)H * D;
   const long kv_stride = (long)HKV * D;
   const long q_off = (long)b * SQ * q_stride + (long)h * D;
   const bf16* kb = k + (long)b * SKV * kv_stride + (long)hk * D;
   const bf16* vb = v + (long)b * SKV * kv_stride + (long)hk * D;
 
-  load_tile<D, LD>(Qs, q + q_off, q_stride, q0, kDqBQ, SQ);
-  load_tile<D, LD>(dOs, dout + q_off, q_stride, q0, kDqBQ, SQ);
+  // Causal: keys past the tile's last query row are masked for every row.
+  const int kv_end = causal ? min(SKV, q0 + kTile) : SKV;
+  const int steps = (kv_end + kTile - 1) / kTile;
+  auto prefetch = [&](int i) {  // step i's K and V tiles into a stage
+    if (i < steps) {
+      const uint32_t st = base + (2 + 2 * (i % kStages)) * kBytes;
+      load_tile_async<D, DP>(st, kb, kv_stride, i * kTile, SKV);
+      load_tile_async<D, DP>(st + kBytes, vb, kv_stride, i * kTile, SKV);
+    }
+    cp_async_commit();
+  };
+  load_tile_async<D, DP>(Qs, q + q_off, q_stride, q0, SQ);
+  load_tile_async<D, DP>(dOs, dout + q_off, q_stride, q0, SQ);
+  prefetch(0);
 
-  const int row_a = q0 + warp * 16 + g;  // query index of c0/c1; +8: c2/c3
   const float* lrow = lse + ((long)b * H + h) * SQ;
   const float* drow = delta + ((long)b * H + h) * SQ;
-  float lse_r[2], dl_r[2];
+  const float sl2 = scale * kLog2e;
+  float lse_r[2], dl_r[2];  // LSE log2(e) and Delta scale of the two rows
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row_a + 8 * i;
-    lse_r[i] = row < SQ ? lrow[row] : 0.f;
-    dl_r[i] = row < SQ ? drow[row] : 0.f;
+    lse_r[i] = row < SQ ? lrow[row] * kLog2e : 0.f;
+    dl_r[i] = row < SQ ? drow[row] * scale : 0.f;
   }
 
-  float acc[D / 8][4];
+  float acc[DP / 2];
 #pragma unroll
-  for (int t = 0; t < D / 8; ++t)
-    acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
 
-  const bf16* Qw = Qs + warp * 16 * LD;
-  const bf16* dOw = dOs + warp * 16 * LD;
-  // Causal: keys past the tile's last query row are masked for every row.
-  const int kv_end = causal ? min(SKV, q0 + kDqBQ) : SKV;
-  for (int k0 = 0; k0 < kv_end; k0 += kDqBK) {
-    __syncthreads();  // Q/dO are in; the previous K/V tile is consumed
-    load_tile<D, LD>(Ks, kb, kv_stride, k0, kDqBK, SKV);
-    load_tile<D, LD>(Vs, vb, kv_stride, k0, kDqBK, SKV);
-    __syncthreads();
+  for (int i = 0; i < steps; ++i) {
+    cp_async_land();
+    __syncthreads();  // step i is in; every thread is done with step i-1
+    prefetch(i + 1);  // into step i-1's stage, under step i's products
+    const uint32_t Ks = base + (2 + 2 * (i % kStages)) * kBytes;
+    const uint32_t Vs = Ks + kBytes;
 
-    float s[kDqBK / 8][4], dp[kDqBK / 8][4];
-    mma_abt<D, LD, kDqBK / 8>(s, Qw, Ks, g, c2);    // S = Q K^T
-    mma_abt<D, LD, kDqBK / 8>(dp, dOw, Vs, g, c2);  // dP = dO V^T
+    float s[32], dp[32];
 #pragma unroll
-    for (int j = 0; j < kDqBK / 8; ++j)
+    for (int j = 0; j < 32; ++j) s[j] = dp[j] = 0.f;
+    pin(s);
+    pin(dp);
+    wgmma_fence();
+    wgmma_scores<DP>(s, Qs, Ks);  // S = Q K^T
+    wgmma_commit();
+    wgmma_scores<DP>(dp, dOs, Vs);  // dP = dO V^T
+    wgmma_commit();
+    wgmma_wait<1>();  // S is in; P is computed under dP's product
+    pin(s);
+    const int k0 = i * kTile;
+    if (k0 + kTile <= SKV && !(causal && k0 + kTile - 1 > q0))
+      dq_p<false>(s, lse_r, sl2, k0 + c2, row_a, SKV, causal);
+    else
+      dq_p<true>(s, lse_r, sl2, k0 + c2, row_a, SKV, causal);
+    wgmma_wait<0>();
+    pin(dp);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + c2 + (e & 1);
-        const int i = e >> 1;
-        const bool masked = col >= SKV || (causal && col > row_a + 8 * i);
-        const float p = masked ? 0.f : expf(s[j][e] * scale - lse_r[i]);
-        s[j][e] = p * (dp[j][e] - dl_r[i]) * scale;  // dS
-      }
-    mma_pb<D, LD, kDqBK / 16>(acc, s, Ks, g, c2);  // dQ += dS K
+    for (int j = 0; j < 32; ++j)
+      s[j] *= fmaf(dp[j], scale, -dl_r[(j >> 1) & 1]);  // dS
+    uint32_t f[4][4];
+    to_frags(f, s);
+    pin(acc);
+    pin(f);
+    wgmma_fence();
+    wgmma_accumulate<DP>(acc, f, Ks);  // dQ += dS K
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(acc);
+    pin(f);
   }
-  store_rows<D>(dq + q_off, q_stride, acc, row_a, SQ, c2);
+  cp_async_land();  // no copy outlives the block
+  store_acc<D, DP>(dq + q_off, q_stride, acc, row_a, SQ, c2);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v,
-                      const bf16* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, bf16* __restrict__ dk,
-                      bf16* __restrict__ dv, int H, int HKV, int SQ, int SKV,
-                      float scale, int causal) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + kDkvBK * LD;
-  bf16* Qs = Vs + kDkvBK * LD;
-  bf16* dOs = Qs + kDkvBQ * LD;
-  float* lse_s = reinterpret_cast<float*>(dOs + kDkvBQ * LD);
-  float* dl_s = lse_s + kDkvBQ;
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_bwd_dkv_wgmma(const bf16* __restrict__ q,
+                        const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        bf16* __restrict__ dk, bf16* __restrict__ dv, int B,
+                        int H, int HKV, int SQ, int SKV, float scale,
+                        int causal) {
+  constexpr int DP = D < 64 ? 64 : D;
+  constexpr uint32_t kBytes = tile_bytes<DP>();
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t pad = ((smem_addr(smem_raw) + 1023) & ~1023u) -
+                       smem_addr(smem_raw);
+  const uint32_t base = smem_addr(smem_raw) + pad;
+  const uint32_t Ks = base, Vs = base + kBytes;  // then the Q/dO stages
+  const uint32_t rows_off = pad + (2 + 2 * kStages) * kBytes;
+  const uint32_t rows_addr = smem_addr(smem_raw) + rows_off;
+  float* rows = reinterpret_cast<float*>(smem_raw + rows_off);
 
-  const int k0 = blockIdx.x * kDkvBK;
-  const int hk = blockIdx.y, b = blockIdx.z;
+  // Tile-major numbering: under the causal mask kv tile 0 sees every query,
+  // so every (kv head, batch)'s first tile starts first.
+  const int t = blockIdx.x / (HKV * B), hb = blockIdx.x % (HKV * B);
+  const int k0 = t * kTile;
+  const int hk = hb % HKV, b = hb / HKV;
   const int group = H / HKV;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  const int c2 = (lane & 3) * 2;
+  const int key_a = k0 + warp * 16 + (lane >> 2);  // +8: the second key
+  const float sl2 = scale * kLog2e;
   const long q_stride = (long)H * D;
   const long kv_stride = (long)HKV * D;
   const long kv_off = (long)b * SKV * kv_stride + (long)hk * D;
 
-  load_tile<D, LD>(Ks, k + kv_off, kv_stride, k0, kDkvBK, SKV);
-  load_tile<D, LD>(Vs, v + kv_off, kv_stride, k0, kDkvBK, SKV);
-
-  const int key_a = k0 + warp * 16 + g;  // key index of c0/c1; +8: c2/c3
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int t = 0; t < D / 8; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[t][e] = dv_acc[t][e] = 0.f;
-
-  const bf16* Kw = Ks + warp * 16 * LD;
-  const bf16* Vw = Vs + warp * 16 * LD;
   // Causal: q tiles wholly before the block's first key see none of it.
-  const int q_begin = causal ? (k0 / kDkvBQ) * kDkvBQ : 0;
-  for (int hi = 0; hi < group; ++hi) {
-    const int h = hk * group + hi;
-    const long q_off = (long)b * SQ * q_stride + (long)h * D;
-    const float* lrow = lse + ((long)b * H + h) * SQ;
-    const float* drow = delta + ((long)b * H + h) * SQ;
-    for (int q0 = q_begin; q0 < SQ; q0 += kDkvBQ) {
-      __syncthreads();  // K/V are in; the previous Q/dO tile is consumed
-      load_tile<D, LD>(Qs, q + q_off, q_stride, q0, kDkvBQ, SQ);
-      load_tile<D, LD>(dOs, dout + q_off, q_stride, q0, kDkvBQ, SQ);
-      if (threadIdx.x < kDkvBQ) {
-        const int r = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = r < SQ ? lrow[r] : 0.f;
-        dl_s[threadIdx.x] = r < SQ ? drow[r] : 0.f;
-      }
-      __syncthreads();
-
-      // Transposed scores: rows are this warp's 16 keys, columns the tile's
-      // 32 queries.
-      float pt[kDkvBQ / 8][4], dst[kDkvBQ / 8][4];
-      mma_abt<D, LD, kDkvBQ / 8>(pt, Kw, Qs, g, c2);    // S^T = K Q^T
-      mma_abt<D, LD, kDkvBQ / 8>(dst, Vw, dOs, g, c2);  // dP^T = V dO^T
-#pragma unroll
-      for (int j = 0; j < kDkvBQ / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qc = j * 8 + c2 + (e & 1);
-          const int key = key_a + 8 * (e >> 1);
-          const bool valid = q0 + qc < SQ && key < SKV &&
-                             !(causal && key > q0 + qc);
-          const float p =
-              valid ? expf(pt[j][e] * scale - lse_s[qc]) : 0.f;
-          pt[j][e] = p;
-          dst[j][e] = p * (dst[j][e] - dl_s[qc]) * scale;  // dS^T
-        }
-      mma_pb<D, LD, kDkvBQ / 16>(dv_acc, pt, dOs, g, c2);  // dV += P^T dO
-      mma_pb<D, LD, kDkvBQ / 16>(dk_acc, dst, Qs, g, c2);  // dK += dS^T Q
+  const int n_q = (SQ + kTile - 1) / kTile;
+  const int qt0 = causal ? min(t, n_q) : 0;
+  const int per_head = n_q - qt0;
+  const int steps = group * per_head;  // head-major, q tiles in order
+  auto prefetch = [&](int i) {  // step i's Q, dO, LSE and Delta into a stage
+    if (i < steps) {
+      const int h = hk * group + i / per_head;
+      const int r0 = (qt0 + i % per_head) * kTile;
+      const long q_off = (long)b * SQ * q_stride + (long)h * D;
+      const uint32_t st = base + (2 + 2 * (i % kStages)) * kBytes;
+      load_tile_async<D, DP>(st, q + q_off, q_stride, r0, SQ);
+      load_tile_async<D, DP>(st + kBytes, dout + q_off, q_stride, r0, SQ);
+      // Threads 0..63 copy the LSE row, 64..127 the Delta row.
+      const int r = threadIdx.x & (kTile - 1);
+      const float* src = (threadIdx.x < kTile ? lse : delta) +
+                         ((long)b * H + h) * SQ + r0 + r;
+      const bool in = r0 + r < SQ;
+      cp_async4(rows_addr + ((i % kStages) * 2 * kTile + threadIdx.x) * 4,
+                in ? src : lse, in ? 4 : 0);
     }
+    cp_async_commit();
+  };
+  load_tile_async<D, DP>(Ks, k + kv_off, kv_stride, k0, SKV);
+  load_tile_async<D, DP>(Vs, v + kv_off, kv_stride, k0, SKV);
+  prefetch(0);
+
+  float dk_acc[DP / 2], dv_acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  for (int i = 0; i < steps; ++i) {
+    cp_async_land();
+    __syncthreads();  // step i is in; every thread is done with step i-1
+    prefetch(i + 1);  // into step i-1's stage, under step i's products
+    const uint32_t Qs = base + (2 + 2 * (i % kStages)) * kBytes;
+    const uint32_t dOs = Qs + kBytes;
+    const float* lse_s = rows + (i % kStages) * 2 * kTile;
+    const float* dl_s = lse_s + kTile;
+    const int q0 = (qt0 + i % per_head) * kTile;
+
+    // Transposed scores: rows are the block's 64 keys, columns the tile's
+    // 64 queries.
+    float st[32], dpt[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) st[j] = dpt[j] = 0.f;
+    pin(st);
+    pin(dpt);
+    wgmma_fence();
+    wgmma_scores<DP>(st, Ks, Qs);  // S^T = K Q^T
+    wgmma_commit();
+    wgmma_scores<DP>(dpt, Vs, dOs);  // dP^T = V dO^T
+    wgmma_commit();
+    wgmma_wait<1>();  // S^T is in; P^T is computed under dP^T's product
+    pin(st);
+    if (q0 + kTile <= SQ && k0 + kTile <= SKV &&
+        !(causal && k0 + kTile - 1 > q0))
+      dkv_p<false>(st, lse_s, sl2, q0, c2, key_a, SQ, SKV, causal);
+    else
+      dkv_p<true>(st, lse_s, sl2, q0, c2, key_a, SQ, SKV, causal);
+    uint32_t pf[4][4], df[4][4];
+    to_frags(pf, st);
+    pin(dv_acc);
+    pin(pf);
+    wgmma_fence();
+    wgmma_accumulate<DP>(dv_acc, pf, dOs);  // dV += P^T dO
+    wgmma_commit();
+    wgmma_wait<1>();  // dP^T is in; dS^T is computed under dV's product
+    pin(dpt);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 d2 =
+          *reinterpret_cast<const float2*>(dl_s + j * 8 + c2);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dpt[4 * j + e] = st[4 * j + e] *
+                         fmaf(dpt[4 * j + e], scale,
+                              -((e & 1) ? d2.y : d2.x) * scale);  // dS^T
+    }
+    to_frags(df, dpt);
+    pin(dk_acc);
+    pin(df);
+    wgmma_fence();
+    wgmma_accumulate<DP>(dk_acc, df, Qs);  // dK += dS^T Q
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(dv_acc);
+    pin(dk_acc);
+    pin(pf);
+    pin(df);
   }
-  store_rows<D>(dk + kv_off, kv_stride, dk_acc, key_a, SKV, c2);
-  store_rows<D>(dv + kv_off, kv_stride, dv_acc, key_a, SKV, c2);
+  cp_async_land();  // no copy outlives the block
+  store_acc<D, DP>(dk + kv_off, kv_stride, dk_acc, key_a, SKV, c2);
+  store_acc<D, DP>(dv + kv_off, kv_stride, dv_acc, key_a, SKV, c2);
 }
 
 template <int D>
-int launch_dq_mma(const void* q, const void* k, const void* v,
-                  const void* dout, const void* lse, const void* delta,
-                  void* dq, int B, int H, int HKV, int SQ, int SKV,
-                  float scale, int causal, cudaStream_t stream) {
-  const size_t smem = (size_t)(2 * kDqBQ + 2 * kDqBK) * (D + 8) * sizeof(bf16);
+int launch_dq_wgmma(const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* delta,
+                    void* dq, int B, int H, int HKV, int SQ, int SKV,
+                    float scale, int causal, cudaStream_t stream) {
+  const size_t smem = smem_bytes<(D < 64 ? 64 : D)>(false);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((SQ + kDqBQ - 1) / kDqBQ, H, B);
-  flash_bwd_dq_mma<D><<<grid, kThreads, smem, stream>>>(
+  const int blocks = (SQ + kTile - 1) / kTile * H * B;
+  flash_bwd_dq_wgmma<D><<<blocks, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), H, HKV, SQ, SKV, scale, causal);
+      static_cast<bf16*>(dq), B, H, HKV, SQ, SKV, scale, causal);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch_dkv_mma(const void* q, const void* k, const void* v,
-                   const void* dout, const void* lse, const void* delta,
-                   void* dk, void* dv, int B, int H, int HKV, int SQ, int SKV,
-                   float scale, int causal, cudaStream_t stream) {
-  const size_t smem =
-      (size_t)(2 * kDkvBK + 2 * kDkvBQ) * (D + 8) * sizeof(bf16) +
-      2 * kDkvBQ * sizeof(float);
+int launch_dkv_wgmma(const void* q, const void* k, const void* v,
+                     const void* dout, const void* lse, const void* delta,
+                     void* dk, void* dv, int B, int H, int HKV, int SQ,
+                     int SKV, float scale, int causal, cudaStream_t stream) {
+  const size_t smem = smem_bytes<(D < 64 ? 64 : D)>(true);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dkv_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((SKV + kDkvBK - 1) / kDkvBK, HKV, B);
-  flash_bwd_dkv_mma<D><<<grid, kThreads, smem, stream>>>(
+  const int blocks = (SKV + kTile - 1) / kTile * HKV * B;
+  flash_bwd_dkv_wgmma<D><<<blocks, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, HKV, SQ, SKV, scale,
-      causal);
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, H, HKV, SQ, SKV,
+      scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -569,14 +918,14 @@ extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32:
-      return launch_dq_mma<32>(q, k, v, dout, lse, delta, dq, B, H, HKV, SQ,
-                               SKV, scale, causal, s);
+      return launch_dq_wgmma<32>(q, k, v, dout, lse, delta, dq, B, H, HKV,
+                                 SQ, SKV, scale, causal, s);
     case 64:
-      return launch_dq_mma<64>(q, k, v, dout, lse, delta, dq, B, H, HKV, SQ,
-                               SKV, scale, causal, s);
+      return launch_dq_wgmma<64>(q, k, v, dout, lse, delta, dq, B, H, HKV,
+                                 SQ, SKV, scale, causal, s);
     case 128:
-      return launch_dq_mma<128>(q, k, v, dout, lse, delta, dq, B, H, HKV, SQ,
-                                SKV, scale, causal, s);
+      return launch_dq_wgmma<128>(q, k, v, dout, lse, delta, dq, B, H, HKV,
+                                  SQ, SKV, scale, causal, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -591,14 +940,14 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32:
-      return launch_dkv_mma<32>(q, k, v, dout, lse, delta, dk, dv, B, H, HKV,
-                                SQ, SKV, scale, causal, s);
+      return launch_dkv_wgmma<32>(q, k, v, dout, lse, delta, dk, dv, B, H,
+                                  HKV, SQ, SKV, scale, causal, s);
     case 64:
-      return launch_dkv_mma<64>(q, k, v, dout, lse, delta, dk, dv, B, H, HKV,
-                                SQ, SKV, scale, causal, s);
+      return launch_dkv_wgmma<64>(q, k, v, dout, lse, delta, dk, dv, B, H,
+                                  HKV, SQ, SKV, scale, causal, s);
     case 128:
-      return launch_dkv_mma<128>(q, k, v, dout, lse, delta, dk, dv, B, H,
-                                 HKV, SQ, SKV, scale, causal, s);
+      return launch_dkv_wgmma<128>(q, k, v, dout, lse, delta, dk, dv, B, H,
+                                   HKV, SQ, SKV, scale, causal, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

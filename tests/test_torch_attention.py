@@ -16,6 +16,18 @@ import torch
 from ray_tpu.ops import attention as jattn
 from ray_tpu_torch.ops import attention as tattn
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two intra-op threads for this module's torch work, restored after:
+    the suite runs several pytest workers at once, and torch's default of
+    one thread per core in each of them oversubscribes the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(atol=2e-5, rtol=2e-5)
 
 
@@ -208,28 +220,52 @@ def test_flash_kernel_matches_plain_on_cuda(cuda, dtype, atol):
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 5e-2),
-                                        (torch.float32, 5e-4)])
-def test_flash_backward_kernels_match_plain_on_cuda(cuda, dtype, atol):
-    """K2 and K3 on the card against flash_attention_bwd_plain on the same
-    inputs, ragged S=200 with GQA 2:1 (bf16: P and dS are rounded to bf16
-    before their products, as in the Pallas kernels)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    q, k, v = [t.to(cuda, dtype) for t in _t(*_qkv(sq=200, hkv=2, d=64))]
+def _bwd_inputs(cuda, dtype, d, causal):
+    """Ragged S=200 with GQA 2:1 on the card: q, k, v, dout, K1's out and
+    lse, and Delta."""
+    q, k, v = [t.to(cuda, dtype) for t in _t(*_qkv(sq=200, hkv=2, d=d))]
     dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)
                        ).to(cuda, dtype)
-    out, lse = tattn.flash_fwd_kernel(q, k, v, causal=True)
-    delta = tattn.flash_bwd_delta(out, dout)
+    out, lse = tattn.flash_fwd_kernel(q, k, v, causal=causal)
+    return q, k, v, dout, out, lse, tattn.flash_bwd_delta(out, dout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 5e-2),
+                                        (torch.float32, 5e-4)])
+def test_flash_backward_kernels_match_plain_on_cuda(cuda, dtype, atol, d,
+                                                    causal):
+    """K2 and K3 on the card against flash_attention_bwd_plain on the same
+    inputs, ragged S=200 with GQA 2:1, every head dim the bf16 path is
+    built for (bf16: P and dS are rounded to bf16 before their products,
+    as in the Pallas kernels)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, dout, out, lse, delta = _bwd_inputs(cuda, dtype, d, causal)
     before = (tattn.flash_bwd_dq_kernel.launches,
               tattn.flash_bwd_dkv_kernel.launches)
-    dq = tattn.flash_bwd_dq_kernel(q, k, v, dout, lse, delta, causal=True)
+    dq = tattn.flash_bwd_dq_kernel(q, k, v, dout, lse, delta, causal=causal)
     dk, dv = tattn.flash_bwd_dkv_kernel(q, k, v, dout, lse, delta,
-                                        causal=True)
+                                        causal=causal)
     assert (tattn.flash_bwd_dq_kernel.launches,
             tattn.flash_bwd_dkv_kernel.launches) == (before[0] + 1,
                                                      before[1] + 1)
-    refs = tattn.flash_attention_bwd_plain(q, k, v, out, lse, dout, True)
+    refs = tattn.flash_attention_bwd_plain(q, k, v, out, lse, dout, causal)
     for got, ref in zip((dq, dk, dv), refs):
         torch.testing.assert_close(got.float(), ref.float(), atol=atol,
                                    rtol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 128])
+def test_flash_backward_kernels_are_deterministic_on_cuda(cuda, d):
+    """Two launches of K2 and of K3 on the same inputs give the same bits:
+    the GQA sum runs inside K3's block in a fixed order, with no
+    atomics."""
+    q, k, v, dout, _, lse, delta = _bwd_inputs(cuda, torch.bfloat16, d, True)
+    runs = [(tattn.flash_bwd_dq_kernel(q, k, v, dout, lse, delta),
+             *tattn.flash_bwd_dkv_kernel(q, k, v, dout, lse, delta))
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)

@@ -18,6 +18,18 @@ from ray_tpu_torch.llm._internal import paged as tpaged
 from ray_tpu_torch.models import llama as tllama
 from ray_tpu_torch.models.convert import convert_params, unconvert_params
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two intra-op threads for this module's torch work, restored after:
+    the suite runs several pytest workers at once, and torch's default of
+    one thread per core in each of them oversubscribes the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)
 TOL = dict(atol=2e-5, rtol=2e-5)
 

@@ -13,6 +13,18 @@ import torch
 from ray_tpu.llm._internal import paged as jpaged
 from ray_tpu_torch.llm._internal import paged as tpaged
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two intra-op threads for this module's torch work, restored after:
+    the suite runs several pytest workers at once, and torch's default of
+    one thread per core in each of them oversubscribes the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(atol=2e-5, rtol=2e-5)
 
 

@@ -23,6 +23,18 @@ from ray_tpu_torch.llm import (
 )
 from ray_tpu_torch.models import llama as tllama
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two intra-op threads for this module's torch work, restored after:
+    the suite runs several pytest workers at once, and torch's default of
+    one thread per core in each of them oversubscribes the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = {"model": "tiny", "model_config": {"vocab_size": 128}, "seed": 0,
         "engine_config": {"max_seqs": 2, "page_size": 4,

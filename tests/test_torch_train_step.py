@@ -24,6 +24,18 @@ from ray_tpu_torch.models.convert import convert_params
 from ray_tpu_torch.ops import attention as tattn
 from ray_tpu_torch.train import step as tstep
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two intra-op threads for this module's torch work, restored after:
+    the suite runs several pytest workers at once, and torch's default of
+    one thread per core in each of them oversubscribes the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 LR = 1e-3
 STEPS = 3
 
