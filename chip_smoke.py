@@ -18,6 +18,12 @@ card's name and power limit from nvidia-smi, and the last line is
 
 Exits non-zero, with no result, when CUDA is absent or the port's package
 is not beside this file, and when any check fails.
+
+    python3 chip_smoke.py --versus PARENT
+
+also times the kernels of another checkout of the repo (PARENT, e.g. the
+parent commit unpacked with git archive) against this tree's, alternating
+(phase "versus").
 """
 
 import contextlib
@@ -161,27 +167,34 @@ def ptxas_report(log):
 
 # ---------------------------------------------------------------------------
 def k1_case(attn, label, b, s, h, hkv, d, dtype, causal, seed, dev,
-            time_it=True):
+            time_it=True, skv=None):
+    """K1 against flash_attention_fwd_plain on seeded inputs (q [b,s,h,d],
+    k/v [b,skv,hkv,d], skv = s unless given); two launches must give the
+    same bits."""
+    skv = skv or s
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
-               for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)))
+               for shape in ((b, s, h, d), (b, skv, hkv, d), (b, skv, hkv, d)))
     out, lse = attn.flash_fwd_kernel(q, k, v, causal=causal)
+    again = attn.flash_fwd_kernel(q, k, v, causal=causal)
     ref, ref_lse = attn.flash_attention_fwd_plain(q, k, v, causal)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     lse_err = (lse - ref_lse).abs().max().item()
     atol, rtol = TOL["K1", dtype]
     used = limit_used(out, ref, atol, rtol)
-    ok = (used <= 1 and lse_err <= LSE_TOL
+    repeat = torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    ok = (used <= 1 and lse_err <= LSE_TOL and repeat
           and bool(torch.isfinite(out).all()))
     check(ok, f"K1 {label}")
     row = {"phase": "k1_check", "case": label, "shape": [b, s, h, hkv, d],
-           "dtype": str(dtype).split(".")[-1], "causal": causal,
+           "skv": skv, "dtype": str(dtype).split(".")[-1], "causal": causal,
            "max_abs_err": err, "lse_max_abs_err": lse_err, "atol": atol,
-           "rtol": rtol, "limit_used": used, "ok": ok}
+           "rtol": rtol, "limit_used": used, "bitwise_repeat": repeat,
+           "ok": ok}
+    del again
     if time_it:
-        pairs = s * (s + 1) // 2 if causal else s * s
-        flops = 4 * b * h * d * pairs
+        flops = 4 * b * h * d * attn_pairs(s, skv, causal)
         io = nbytes(q, k, v, out, lse)
         sets = copies((q, k, v), io)
         row["ms"] = cuda_ms(
@@ -196,6 +209,15 @@ def k1_case(attn, label, b, s, h, hkv, d, dtype, causal, seed, dev,
         row["tflops"] = flops / row["ms"] / 1e9
     emit(row)
     return row
+
+
+def attn_pairs(sq, skv, causal):
+    """The (query, key) pairs attention computes: all of them, or under the
+    causal mask (key j <= query i, both from 0) sum_i min(i + 1, skv)."""
+    if not causal:
+        return sq * skv
+    n = min(sq, skv)
+    return n * (n + 1) // 2 + (sq - n) * skv
 
 
 def _sdpa(q, k, v, causal):
@@ -254,7 +276,7 @@ def k2k3_case(attn, label, b, s, h, hkv, d, dtype, causal, seed, dev,
     check(ok, f"K2/K3 {label}")
     row["ok"] = ok
     if time_it:
-        pairs = s * (s + 1) // 2 if causal else s * s
+        pairs = attn_pairs(s, s, causal)
         io_dq = nbytes(q, k, v, do, lse, delta, dq)
         io_dkv = nbytes(q, k, v, do, lse, delta, dk, dv)
         sets = copies((q, k, v, out, do, lse, delta), io_dkv)
@@ -347,6 +369,68 @@ def k4_case(paged, label, dtype, seq_lens, seed, dev):
     row["gbps"] = io / row["ms"] / 1e6
     emit(row)
     return row
+
+
+def load_parent_attention(parent):
+    """ray_tpu_torch/ops/attention.py of another checkout (the parent
+    commit's), bound to that checkout's own native builder, so its K1 is
+    built from its own csrc/ into its own _build/."""
+    import importlib.util
+
+    def load(name, rel):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(parent, "ray_tpu_torch", *rel))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    mod = load("parent_attention", ("ops", "attention.py"))
+    mod.native = load("parent_native", ("native", "__init__.py"))
+    return mod
+
+
+def versus_phase(attn, parent, shapes, dev):
+    """The parent checkout's kernels against this tree's on the same
+    inputs, in one process on one card, each timed in the order parent,
+    this, this, parent: K1 at each (label, b, s, backward) of ``shapes``
+    (32 heads over 8, D = 128, causal, bf16), and K2 and K3 too where
+    ``backward``."""
+    other = load_parent_attention(parent)
+    order = (("parent", other), ("this", attn), ("this", attn),
+             ("parent", other))
+
+    def alternate(call, sets):
+        ms = [cuda_ms(lambda *a, m=m: call(m, *a), sets) for _, m in order]
+        return {"ms": ms, "parent_ms": (ms[0] + ms[3]) / 2,
+                "this_ms": (ms[1] + ms[2]) / 2}
+
+    for label, b, s, backward in shapes:
+        g = torch.Generator(device=dev).manual_seed(20)
+        q, k, v, do = (torch.randn(shape, generator=g, device=dev)
+                       .to(torch.bfloat16)
+                       for shape in ((b, s, 32, 128), (b, s, 8, 128),
+                                     (b, s, 8, 128), (b, s, 32, 128)))
+        out_p, lse_p = other.flash_fwd_kernel(q, k, v, causal=True)
+        out_t, lse_t = attn.flash_fwd_kernel(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        row = {"phase": "versus", "case": label, "shape": [b, s, 32, 8, 128],
+               "order": [w for w, _ in order],
+               "out_max_abs_diff": (out_p.float() - out_t.float()).abs()
+               .max().item(),
+               "lse_max_abs_diff": (lse_p - lse_t).abs().max().item(),
+               "flash_fwd": alternate(
+                   lambda m, q, k, v: m.flash_fwd_kernel(q, k, v,
+                                                         causal=True),
+                   copies((q, k, v), nbytes(q, k, v) * 2))}
+        if backward:
+            delta = attn.flash_bwd_delta(out_t, do)
+            sets = copies((q, k, v, do, lse_t, delta),
+                          nbytes(q, k, v, do, lse_t, delta) * 2)
+            row["flash_bwd_dq"] = alternate(
+                lambda m, *a: m.flash_bwd_dq_kernel(*a, causal=True), sets)
+            row["flash_bwd_dkv"] = alternate(
+                lambda m, *a: m.flash_bwd_dkv_kernel(*a, causal=True), sets)
+        emit(row)
 
 
 # ---------------------------------------------------------------------------
@@ -751,6 +835,13 @@ def train_8b_phase(dev, wrappers):
 
 # ---------------------------------------------------------------------------
 def main():
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--versus", metavar="CHECKOUT",
+                    help="also time K1 of another checkout of the repo (the "
+                         "parent commit's) against this tree's, alternating")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -779,9 +870,11 @@ def main():
                     for n, log in native.build_logs.items()}})
 
     # K1 against flash_attention_fwd_plain.
-    for causal in (True, False):
-        k1_case(attn, f"8b_bf16_{'causal' if causal else 'full'}", 1, 2048,
-                32, 8, 128, torch.bfloat16, causal, 0, dev)
+    for b, causal in ((1, True), (2, True), (1, False)):
+        k1_case(attn, f"8b_bf16_{'causal' if causal else 'full'}_b{b}", b,
+                2048, 32, 8, 128, torch.bfloat16, causal, 0, dev)
+    k1_case(attn, "main_shape_bf16_d64", 2, 2048, 32, 8, 64, torch.bfloat16,
+            True, 16, dev)
     k1_case(attn, "small_f32_causal", 2, 256, 4, 2, 64, torch.float32, True,
             1, dev)
     k1_case(attn, "ragged_f32_full", 1, 200, 4, 1, 32, torch.float32, False,
@@ -790,6 +883,12 @@ def main():
             3, dev, time_it=False)
     k1_case(attn, "ragged_bf16_d32", 1, 77, 4, 2, 32, torch.bfloat16, True,
             4, dev, time_it=False)
+    # Sq != Skv: more keys than queries (full), and more queries than keys
+    # (causal: the rows past Skv see every key).
+    k1_case(attn, "sq200_skv333_bf16_full", 2, 200, 8, 2, 128,
+            torch.bfloat16, False, 17, dev, time_it=False, skv=333)
+    k1_case(attn, "sq333_skv200_bf16_causal", 2, 333, 8, 2, 128,
+            torch.bfloat16, True, 18, dev, time_it=False, skv=200)
 
     # K2 and K3 against flash_attention_bwd_plain.
     for causal in (True, False):
@@ -838,6 +937,10 @@ def main():
                  torch.bfloat16, True, 8, dev)
     k23 = k2k3_case(attn, "main_path_backward", 2, 2048, 32, 8, 128,
                     torch.bfloat16, True, 9, dev)
+    if args.versus:
+        versus_phase(attn, args.versus,
+                     (("main_path_train", 2, 2048, True),
+                      ("main_path_forward", b, s, False)), dev)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
 

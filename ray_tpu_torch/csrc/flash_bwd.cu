@@ -83,31 +83,20 @@
 //
 // Each C entry point returns cudaGetLastError() after its launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
+using namespace hopper;
 
 constexpr int kThreads = 128;  // 4 warps: one warpgroup
 
 // ---------------------------------------------------------------------------
 // bf16 tensor-core path: wgmma over cp.async-fed swizzled tiles
+// (helpers in hopper.cuh)
 // ---------------------------------------------------------------------------
 constexpr int kTile = 64;   // rows of every tile: q rows (K2), keys (K3)
 constexpr int kStages = 2;  // depth of the load ring
-constexpr int kRowBytes = 128;  // one row of a 64-column block
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // 16- and 4-byte asynchronous copies to shared memory; src_bytes 0 writes
 // zeros and reads nothing.
@@ -136,14 +125,6 @@ __device__ __forceinline__ void cp_async_land() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Byte offset of 16-byte chunk cc (columns 8cc..8cc+7) of row r in a tile:
-// 64-column blocks of kTile 128-byte rows, chunk c of row r stored at chunk
-// c ^ (r % 8), the 128-byte swizzle (tiles start on 1,024 bytes).
-__device__ __forceinline__ uint32_t tile_off(int r, int cc) {
-  return (cc >> 3) * (kTile * kRowBytes) + r * kRowBytes +
-         (((cc & 7) ^ (r & 7)) << 4);
-}
-
 // Start copying rows [r0, r0 + kTile) of a [S, row_stride] bf16 matrix with
 // D columns into the tile at dst (DP columns); rows at or past S and
 // columns at or past D are zero-filled.
@@ -157,163 +138,10 @@ __device__ __forceinline__ void load_tile_async(uint32_t dst, const bf16* src,
     const int c = threadIdx.x + i * kThreads;
     const int r = c / kChunks, cc = c % kChunks;
     const bool in = r0 + r < S && cc * 8 < D;
-    cp_async16(dst + tile_off(r, cc),
+    cp_async16(dst + tile_off<kTile>(r, cc),
                in ? src + (long)(r0 + r) * row_stride + cc * 8 : src,
                in ? 16 : 0);
   }
-}
-
-// wgmma's shared-memory matrix descriptor: start address, leading and
-// stride byte offsets (in 16-byte units), 128-byte swizzle (layout type 1).
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-// A tile as a K-major operand (its rows are M or N, its columns the
-// reduction): k step kk (columns 16kk..16kk+15) starts 32 bytes further
-// into a 128-byte row, in 64-column block kk / 4; 8-row groups are 1,024
-// bytes apart (SBO). The swizzle is applied to the address, so the offset
-// inside the row needs no other change.
-__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
-  return make_desc(tile + (kk >> 2) * (kTile * kRowBytes) + (kk & 3) * 32, 16,
-                   1024);
-}
-
-// A tile as an MN-major B operand (its rows are the reduction, its columns
-// N; read with the transpose bit): k step kk (rows 16kk..16kk+15) starts 16
-// rows further; 64-column blocks are a block apart (LBO), 8-row groups
-// 1,024 bytes (SBO).
-__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
-  return make_desc(tile + kk * 16 * kRowBytes, kTile * kRowBytes, 1024);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// Wait until at most N of this warpgroup's committed wgmma groups are
-// pending; groups complete in the order they were committed.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Registers an asynchronous wgmma reads or writes are pinned before it
-// starts and after its wait, so the compiler moves no access to them in
-// between.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-__device__ __forceinline__ void pin(uint32_t (&r)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// d (+)= A B for a 64 x 64 tile, A and B K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d += A B for a 64 x 64 tile, A (64 x 16) in registers, B MN-major in
-// shared memory (the transpose bit).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d += A B for a 64 x 128 tile, A (64 x 16) in registers, B MN-major in
-// shared memory (the transpose bit).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-
-template <int DP>
-__device__ __forceinline__ void wgmma_rs(float (&d)[DP / 2],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (DP == 64)
-    wgmma_rs_n64(d, a, db);
-  else
-    wgmma_rs_n128(d, a, db);
 }
 
 // s = A B^T over DP columns: A and B are 64-row tiles, both K-major.
@@ -322,7 +150,7 @@ __device__ __forceinline__ void wgmma_scores(float (&s)[32], uint32_t a,
                                              uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < DP / 16; ++kk)
-    wgmma_ss_n64(s, desc_k(a, kk), desc_k(b, kk), kk > 0);
+    wgmma_ss_n64(s, desc_k<kTile>(a, kk), desc_k<kTile>(b, kk), kk > 0);
 }
 
 // acc += P B: P (64 x 64) as bf16 A fragments p[kk] for the k steps
@@ -332,27 +160,8 @@ __device__ __forceinline__ void wgmma_accumulate(float (&acc)[DP / 2],
                                                  const uint32_t (&p)[4][4],
                                                  uint32_t b) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs<DP>(acc, p[kk], desc_mn(b, kk));
-}
-
-// The bf16 A fragments of a 64 x 64 f32 accumulator. The accumulator's
-// layout (thread: rows g and g+8 of its warp's 16, columns 8j + 2c, +1) is
-// wgmma's A-register layout, k step kk holding columns 16kk..16kk+15.
-__device__ __forceinline__ void to_frags(uint32_t (&f)[4][4],
-                                         const float (&s)[32]) {
-#pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      f[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
-}
-
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
+    wgmma_rs<DP>(acc, p[kk], desc_mn<kTile>(b, kk));
 }
 
 // P = 2^(S sl2 - lse2) in place, with sl2 = scale log2(e) and lse2 = LSE
@@ -475,13 +284,16 @@ __global__ void __launch_bounds__(kThreads, 2)
   auto prefetch = [&](int i) {  // step i's K and V tiles into a stage
     if (i < steps) {
       const uint32_t st = base + (2 + 2 * (i % kStages)) * kBytes;
-      load_tile_async<D, DP>(st, kb, kv_stride, i * kTile, SKV);
-      load_tile_async<D, DP>(st + kBytes, vb, kv_stride, i * kTile, SKV);
+      load_tile_async<D, DP>(st, kb, kv_stride, i * kTile,
+                                              SKV);
+      load_tile_async<D, DP>(st + kBytes, vb, kv_stride,
+                                              i * kTile, SKV);
     }
     cp_async_commit();
   };
   load_tile_async<D, DP>(Qs, q + q_off, q_stride, q0, SQ);
-  load_tile_async<D, DP>(dOs, dout + q_off, q_stride, q0, SQ);
+  load_tile_async<D, DP>(dOs, dout + q_off, q_stride, q0,
+                                          SQ);
   prefetch(0);
 
   const float* lrow = lse + ((long)b * H + h) * SQ;
@@ -590,8 +402,10 @@ __global__ void __launch_bounds__(kThreads, 2)
       const int r0 = (qt0 + i % per_head) * kTile;
       const long q_off = (long)b * SQ * q_stride + (long)h * D;
       const uint32_t st = base + (2 + 2 * (i % kStages)) * kBytes;
-      load_tile_async<D, DP>(st, q + q_off, q_stride, r0, SQ);
-      load_tile_async<D, DP>(st + kBytes, dout + q_off, q_stride, r0, SQ);
+      load_tile_async<D, DP>(st, q + q_off, q_stride, r0,
+                                              SQ);
+      load_tile_async<D, DP>(st + kBytes, dout + q_off,
+                                              q_stride, r0, SQ);
       // Threads 0..63 copy the LSE row, 64..127 the Delta row.
       const int r = threadIdx.x & (kTile - 1);
       const float* src = (threadIdx.x < kTile ? lse : delta) +
@@ -602,8 +416,10 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
     cp_async_commit();
   };
-  load_tile_async<D, DP>(Ks, k + kv_off, kv_stride, k0, SKV);
-  load_tile_async<D, DP>(Vs, v + kv_off, kv_stride, k0, SKV);
+  load_tile_async<D, DP>(Ks, k + kv_off, kv_stride, k0,
+                                          SKV);
+  load_tile_async<D, DP>(Vs, v + kv_off, kv_stride, k0,
+                                          SKV);
   prefetch(0);
 
   float dk_acc[DP / 2], dv_acc[DP / 2];

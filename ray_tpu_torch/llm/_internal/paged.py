@@ -27,6 +27,7 @@ from typing import List, Optional
 import torch
 
 from ray_tpu_torch import native
+from ray_tpu_torch.ops.attention import exp_f32
 
 NEG_INF = -1e30
 
@@ -161,7 +162,7 @@ def paged_decode_plain(q: torch.Tensor, k_pages: torch.Tensor,
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     s = torch.where(visible[:, None, None, :], s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m) * visible[:, None, None, :]
+    p = exp_f32(s - m) * visible[:, None, None, :]
     denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     out = torch.einsum("bhqk,bkhd->bqhd", p / denom, v.float())
     return out.to(q.dtype)

@@ -3,9 +3,10 @@
 Counterpart of ray_tpu/native's content-hashed g++ builder. Each
 ``ray_tpu_torch/csrc/<name>.cu`` compiles into its own shared library with a
 plain C interface under ``ray_tpu_torch/_build/`` (listed in .gitignore);
-the library's file name carries a hash of the source and the flags, so a
-changed source rebuilds and an unchanged one is reused. ``build_all()``
-starts one nvcc per stale source, all at once, and waits for them.
+the library's file name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so a changed source or header rebuilds and
+an unchanged one is reused. ``build_all()`` starts one nvcc per stale
+source, all at once, and waits for them.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check()`` raises when that is not 0 (a refused launch never runs, and a
@@ -54,8 +55,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + repr(NVCC_FLAGS).encode())
+    """The library's path, named by a hash of the flags, the source and
+    every header under csrc/ (a source may include any of them)."""
+    digest = hashlib.sha256(repr(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in (f"{name}.cu", *headers):
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -28,6 +28,17 @@ from ray_tpu_torch import native
 NEG_INF = -1e30
 
 
+def exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """exp(x) for the plain versions. On a CPU float32 tensor it goes
+    through float64 and rounds back: torch's first multi-threaded float32
+    exp in a process (the CPU build of torch 2.13) can return one worker
+    thread's share of the tensor off by up to 1e-4, which float64's exp
+    does not; on the card it is float32's exp."""
+    if x.is_cuda or x.dtype != torch.float32:
+        return torch.exp(x)
+    return torch.exp(x.double()).float()
+
+
 def _gqa_expand(k: torch.Tensor, v: torch.Tensor, num_heads: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     num_kv = k.shape[2]
@@ -77,8 +88,8 @@ def block_attn_update(
     if mask is not None:
         s = s + mask[None, None, :, :]
     m_new = torch.maximum(m, s.amax(dim=-1))
-    alpha = torch.exp(m - m_new)
-    p = torch.exp(s - m_new[..., None])
+    alpha = exp_f32(m - m_new)
+    p = exp_f32(s - m_new[..., None])
     l_new = l * alpha + p.sum(dim=-1)
     pv = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
     o_new = o * alpha.transpose(1, 2)[..., None] + pv
@@ -117,7 +128,7 @@ def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
         k_ids = torch.arange(k.shape[1], device=q.device)[None, :]
         s = torch.where(k_ids <= q_ids, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
+    p = exp_f32(s - m)
     denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     out = torch.einsum("bhqk,bkhd->bhqd", p, v.float()) / denom
     lse = (m + torch.log(denom))[..., 0]
@@ -147,7 +158,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
         q_ids = torch.arange(sq, device=q.device)[:, None]
         k_ids = torch.arange(skv, device=q.device)[None, :]
         s = torch.where(k_ids <= q_ids, s, NEG_INF)
-    p = torch.exp(s - lse[..., None])
+    p = exp_f32(s - lse[..., None])
     delta = flash_bwd_delta(out, dout)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, ve)
     ds = p * (dp - delta[..., None]) * scale

@@ -205,16 +205,19 @@ def test_flash_attention_rejects_bad_blocks():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2),
                                         (torch.float32, 2e-5)])
-def test_flash_kernel_matches_plain_on_cuda(cuda, dtype, atol):
-    """K1 on the card against its plain version on the same inputs (bf16:
+def test_flash_kernel_matches_plain_on_cuda(cuda, dtype, atol, d, causal):
+    """K1 on the card against its plain version on the same inputs, ragged
+    S=200 with GQA 2:1, every head dim the bf16 path is built for (bf16:
     one bf16 ulp at |x| < 4, and P is rounded to bf16 before P·V)."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    q, k, v = [t.to(cuda, dtype) for t in _t(*_qkv(sq=200, hkv=2, d=64))]
+    q, k, v = [t.to(cuda, dtype) for t in _t(*_qkv(sq=200, hkv=2, d=d))]
     before = tattn.flash_fwd_kernel.launches
-    out, lse = tattn.flash_fwd_kernel(q, k, v, causal=True)
-    ref, ref_lse = tattn.flash_attention_fwd_plain(q, k, v, True)
+    out, lse = tattn.flash_fwd_kernel(q, k, v, causal=causal)
+    ref, ref_lse = tattn.flash_attention_fwd_plain(q, k, v, causal)
     assert tattn.flash_fwd_kernel.launches == before + 1
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=atol)
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
