@@ -54,7 +54,9 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # same inputs. f32: the order of f32 sums only, held to the JAX tests' 2e-5.
 # bf16: both sides round the output to bf16, so rtol covers one ulp of |out|
 # (2^-8..2^-7 of it); K1 also rounds P to bf16 before P·V, as the Pallas
-# kernel does, hence its 2e-2. atol is a few bf16 ulps of the typical |out|
+# kernel does, hence its 2e-2. K4 and its plain version round P too, the
+# kernel against each warp's running maximum and the plain version against
+# the row's, which its rtol covers. atol is a few bf16 ulps of the typical |out|
 # of a long row (~0.03 for K1's S=2048 rows, ~0.1 for K4's decode rows), so
 # an off-by-one in a mask (a change of ~1/S of a row) fails. Every case
 # prints limit_used = max |out - ref| / (atol + rtol |ref|), which must not
@@ -148,20 +150,22 @@ def nbytes(*ts):
 
 
 def ptxas_report(log):
-    """"kernel<D>: registers, shared memory" for each entry function in
-    nvcc's -Xptxas -v output."""
-    rows, name = [], "?"
-    types = {"f": "<f32>", "13__nv_bfloat16": "<bf16>"}
+    """"kernel<T, D>: registers, barriers; stack frame, spills" for each
+    entry function in nvcc's -Xptxas -v output."""
+    rows, name, frame = [], "?", ""
+    types = {"f": "f32", "13__nv_bfloat16": "bf16"}
     for ln in log.splitlines():
         # The last flash_/paged_ name in the mangled symbol is the kernel's
         # (the first is the anonymous namespace's, named after the file).
         m = re.search(r"Compiling entry function '.*((?:flash|paged)_[a-z0-9_]+)"
-                      r"(?:I(?:Li(\d+)|(f|13__nv_bfloat16))E)?", ln)
+                      r"(?:I(f|13__nv_bfloat16)?(?:Li(\d+))?E)?", ln)
         if m:
-            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else
-                                 types.get(m.group(3), ""))
+            args = [a for a in (types.get(m.group(2)), m.group(3)) if a]
+            name = m.group(1) + (f"<{', '.join(args)}>" if args else "")
+        elif "stack frame" in ln:
+            frame = ln.strip()
         elif "Used" in ln:
-            rows.append(f"{name}: {ln.split(':', 1)[-1].strip()}")
+            rows.append(f"{name}: {ln.split(':', 1)[-1].strip()}; {frame}")
     return rows
 
 
@@ -169,14 +173,15 @@ def ptxas_report(log):
 def k1_case(attn, label, b, s, h, hkv, d, dtype, causal, seed, dev,
             time_it=True, skv=None):
     """K1 against flash_attention_fwd_plain on seeded inputs (q [b,s,h,d],
-    k/v [b,skv,hkv,d], skv = s unless given); two launches must give the
-    same bits."""
+    k/v [b,skv,hkv,d], skv = s unless given), through the forward
+    FlashAttention runs on the card (a head dim K1 is not built for is
+    zero-padded); two launches must give the same bits."""
     skv = skv or s
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
                for shape in ((b, s, h, d), (b, skv, hkv, d), (b, skv, hkv, d)))
-    out, lse = attn.flash_fwd_kernel(q, k, v, causal=causal)
-    again = attn.flash_fwd_kernel(q, k, v, causal=causal)
+    out, lse = attn.flash_fwd_cuda(q, k, v, causal=causal)
+    again = attn.flash_fwd_cuda(q, k, v, causal=causal)
     ref, ref_lse = attn.flash_attention_fwd_plain(q, k, v, causal)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
@@ -230,21 +235,19 @@ def _sdpa(q, k, v, causal):
 def k2k3_case(attn, label, b, s, h, hkv, d, dtype, causal, seed, dev,
               time_it=True):
     """K2 (dQ) and K3 (dK, dV) against flash_attention_bwd_plain on the same
-    inputs, with K1's out and lse and the same Delta."""
+    inputs, with K1's out and lse, through the forward and backward
+    FlashAttention runs on the card (a head dim the kernels are not built
+    for is zero-padded)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v, do = (torch.randn(shape, generator=g, device=dev).to(dtype)
                    for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d),
                                  (b, s, h, d)))
-    out, lse = attn.flash_fwd_kernel(q, k, v, causal=causal)
-    delta = attn.flash_bwd_delta(out, do)
-    dq = attn.flash_bwd_dq_kernel(q, k, v, do, lse, delta, causal=causal)
-    dk, dv = attn.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, causal=causal)
+    out, lse = attn.flash_fwd_cuda(q, k, v, causal=causal)
+    dq, dk, dv = attn.flash_bwd_cuda(q, k, v, out, lse, do, causal=causal)
     refs = attn.flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
     # Deterministic gradients: a second launch on the same inputs gives
     # the same bits (no atomics, a fixed order of every sum).
-    again = (attn.flash_bwd_dq_kernel(q, k, v, do, lse, delta, causal=causal),
-             *attn.flash_bwd_dkv_kernel(q, k, v, do, lse, delta,
-                                        causal=causal))
+    again = attn.flash_bwd_cuda(q, k, v, out, lse, do, causal=causal)
     torch.cuda.synchronize()
     row = {"phase": "k2k3_check", "case": label, "shape": [b, s, h, hkv, d],
            "dtype": str(dtype).split(".")[-1], "causal": causal,
@@ -276,6 +279,7 @@ def k2k3_case(attn, label, b, s, h, hkv, d, dtype, causal, seed, dev,
     check(ok, f"K2/K3 {label}")
     row["ok"] = ok
     if time_it:
+        delta = attn.flash_bwd_delta(out, do)
         pairs = attn_pairs(s, s, causal)
         io_dq = nbytes(q, k, v, do, lse, delta, dq)
         io_dkv = nbytes(q, k, v, do, lse, delta, dk, dv)
@@ -323,9 +327,10 @@ def _sdpa_bwd_ms(sets, causal):
     return both - fwd
 
 
-def k4_inputs(dev, dtype, seq_lens, seed, B=8, H=32, HK=8, D=128, PS=64,
-              MP=8):
-    """The 8B engine's decode shapes; the page table is a permutation."""
+def k4_inputs(dev, dtype, seq_lens, seed, H=32, HK=8, D=128, PS=64, MP=8):
+    """A batch of len(seq_lens) decode rows at the 8B engine's decode
+    shapes unless given; the page table is a permutation of the pool."""
+    B = len(seq_lens)
     g = torch.Generator(device=dev).manual_seed(seed)
     P = B * MP + 1
     q = torch.randn((B, 1, H, D), generator=g, device=dev).to(dtype)
@@ -337,70 +342,148 @@ def k4_inputs(dev, dtype, seq_lens, seed, B=8, H=32, HK=8, D=128, PS=64,
     return q, kp, vp, pt, lens
 
 
-def k4_case(paged, label, dtype, seq_lens, seed, dev):
-    q, kp, vp, pt, lens = k4_inputs(dev, dtype, seq_lens, seed)
+# K4's off-by-one check holds the kernel against the plain version with
+# every seq_len one short, which must fail the limit. One key of a row of n
+# moves an output by about its weight, e^s / (1.65 n) for unit-normal
+# scores (s <= ~3 over a case's heads): above the bf16 atol (2e-3) up to a
+# few thousand keys, below it at 32,768. Longer rows report it only.
+K4_OFF_BY_ONE_MAX_LEN = 4096
+
+
+def k4_dims(paged, q, kp, pt):
+    """(B, H, HK, D, ps, MP) and the host's split (pages, splits)."""
+    B, _, H, D = q.shape
+    HK, PS, MP = kp.shape[0], kp.shape[2], pt.shape[1]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    return (B, H, HK, D, PS, MP), paged.decode_split(B, HK, H // HK, MP, PS,
+                                                     sms)
+
+
+def k4_case(paged, label, dtype, seq_lens, seed, dev, time_it=True,
+            **shape):
+    """K4 against paged_decode_plain on seeded inputs (``k4_inputs``' shapes
+    unless given in ``shape``): two launches must give the same bits, and
+    (rows up to K4_OFF_BY_ONE_MAX_LEN keys) the plain version with every
+    seq_len one short must fail the limit."""
+    q, kp, vp, pt, lens = k4_inputs(dev, dtype, seq_lens, seed, **shape)
     out = paged.paged_attention_decode_kernel(q, kp, vp, pt, lens)
+    again = paged.paged_attention_decode_kernel(q, kp, vp, pt, lens)
     ref = paged.paged_decode_plain(q, kp, vp, pt, lens)
+    short = paged.paged_decode_plain(q, kp, vp, pt, (lens - 1).clamp_min(0))
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     atol, rtol = TOL["K4", dtype]
     used = limit_used(out, ref, atol, rtol)
-    ok = used <= 1 and bool(torch.isfinite(out).all())
+    off = limit_used(out, short, atol, rtol)
+    repeat = torch.equal(out, again)
+    off_required = max(seq_lens) <= K4_OFF_BY_ONE_MAX_LEN
+    ok = (used <= 1 and repeat and bool(torch.isfinite(out).all())
+          and (off > 1 or not off_required))
     check(ok, f"K4 {label}")
-    B, _, H, D = q.shape
-    HK, PS, MP = kp.shape[0], kp.shape[2], pt.shape[1]
-    tokens = sum(min(n, MP * PS) for n in seq_lens)
-    # Each real token's K and V row of every kv head, read once.
-    kv_bytes = 2 * tokens * HK * D * kp.element_size()
-    io = nbytes(q, out, pt, lens) + kv_bytes
-    flops = 4 * tokens * H * D
-    # The kernel reads only the real pages, so the copies are counted by
-    # those bytes, not by the whole pools.
-    sets = copies((q, kp, vp, pt, lens), io)
+    del again, short
+    (B, H, HK, D, PS, MP), (pps, splits) = k4_dims(paged, q, kp, pt)
     row = {"phase": "k4_check", "case": label,
            "shape": {"B": B, "H": H, "HK": HK, "D": D, "ps": PS, "MP": MP},
-           "seq_lens": list(seq_lens), "dtype": str(dtype).split(".")[-1],
+           "seq_lens": (list(seq_lens) if len(seq_lens) <= 8
+                        else f"{len(seq_lens)} rows"),
+           "dtype": str(dtype).split(".")[-1],
+           "split": {"pages": pps, "splits": splits,
+                     "blocks": B * HK * -(-(H // HK) // 16) * splits},
            "max_abs_err": err, "atol": atol, "rtol": rtol,
-           "limit_used": used, "ok": ok, "copies": len(sets),
-           "ms": cuda_ms(paged.paged_attention_decode_kernel, sets),
-           "plain_ms": cuda_ms(paged.paged_decode_plain, sets, iters=5),
-           "library_ms": None}
-    row["bound_ms"], row["bound_by"] = bound(io, flops, dtype)
-    row["gbps"] = io / row["ms"] / 1e6
+           "limit_used": used, "bitwise_repeat": repeat,
+           "off_by_one_limit_used": off,
+           "off_by_one_required": off_required, "ok": ok}
+    if time_it:
+        tokens = sum(min(n, MP * PS) for n in seq_lens)
+        # Each real token's K and V row of every kv head, read once.
+        kv_bytes = 2 * tokens * HK * D * kp.element_size()
+        io = nbytes(q, out, pt, lens) + kv_bytes
+        flops = 4 * tokens * H * D
+        # The kernel reads only the real pages, so the copies are counted
+        # by those bytes, not by the whole pools.
+        sets = copies((q, kp, vp, pt, lens), io)
+        row.update({
+            "copies": len(sets),
+            "ms": cuda_ms(paged.paged_attention_decode_kernel, sets),
+            "plain_ms": cuda_ms(paged.paged_decode_plain, sets, iters=5),
+            "library_ms": None})
+        row["bound_ms"], row["bound_by"] = bound(io, flops, dtype)
+        row["gbps"] = io / row["ms"] / 1e6
     emit(row)
     return row
 
 
-def load_parent_attention(parent):
-    """ray_tpu_torch/ops/attention.py of another checkout (the parent
-    commit's), bound to that checkout's own native builder, so its K1 is
-    built from its own csrc/ into its own _build/."""
+def k4_splits_phase(paged, dev, cases):
+    """K4's time at each split size of ``cases`` ((label, seq_lens, shape,
+    pages a split), bf16), the host's rule (``decode_split``) replaced for
+    these calls only; each result is also held to the plain version. The
+    rule's own choice is reported beside the sweep."""
+    rule = paged.decode_split
+    for label, seq_lens, shape, choices in cases:
+        q, kp, vp, pt, lens = k4_inputs(dev, torch.bfloat16, seq_lens, 29,
+                                        **shape)
+        (B, H, HK, D, PS, MP), chosen = k4_dims(paged, q, kp, pt)
+        ref = paged.paged_decode_plain(q, kp, vp, pt, lens)
+        tokens = sum(min(n, MP * PS) for n in seq_lens)
+        sets = copies((q, kp, vp, pt, lens), 2 * tokens * HK * D * 2)
+        sweep = []
+        try:
+            for pps in choices:
+                splits = -(-MP // pps)
+                paged.decode_split = lambda *_, p=pps, n=splits: (p, n)
+                out = paged.paged_attention_decode_kernel(q, kp, vp, pt, lens)
+                sweep.append({
+                    "pages": pps, "splits": splits,
+                    "blocks": B * HK * -(-(H // HK) // 16) * splits,
+                    "limit_used": limit_used(out, ref,
+                                             *TOL["K4", torch.bfloat16]),
+                    "ms": cuda_ms(paged.paged_attention_decode_kernel,
+                                  sets)})
+        finally:
+            paged.decode_split = rule
+        ok = all(r["limit_used"] <= 1 for r in sweep)
+        check(ok, f"K4 splits {label}")
+        emit({"phase": "k4_splits", "case": label,
+              "rule": {"pages": chosen[0], "splits": chosen[1]},
+              "sweep": sweep, "ok": ok})
+
+
+def load_parent(parent):
+    """ray_tpu_torch/ops/attention.py and llm/_internal/paged.py of another
+    checkout (the parent commit's), bound to that checkout's own native
+    builder, so its kernels are built from its own csrc/ into its own
+    _build/."""
     import importlib.util
 
     def load(name, rel):
         spec = importlib.util.spec_from_file_location(
             name, os.path.join(parent, "ray_tpu_torch", *rel))
         mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod  # dataclasses look their module up there
         spec.loader.exec_module(mod)
         return mod
 
-    mod = load("parent_attention", ("ops", "attention.py"))
-    mod.native = load("parent_native", ("native", "__init__.py"))
-    return mod
+    native = load("parent_native", ("native", "__init__.py"))
+    attention = load("parent_attention", ("ops", "attention.py"))
+    paged = load("parent_paged", ("llm", "_internal", "paged.py"))
+    attention.native = paged.native = native
+    return attention, paged
 
 
-def versus_phase(attn, parent, shapes, dev):
+def versus_phase(attn, paged, parent, shapes, k4_cases, dev):
     """The parent checkout's kernels against this tree's on the same
     inputs, in one process on one card, each timed in the order parent,
     this, this, parent: K1 at each (label, b, s, backward) of ``shapes``
     (32 heads over 8, D = 128, causal, bf16), and K2 and K3 too where
-    ``backward``."""
-    other = load_parent_attention(parent)
-    order = (("parent", other), ("this", attn), ("this", attn),
-             ("parent", other))
+    ``backward``; K4 at each (label, seq_lens, shape) of ``k4_cases``
+    (bf16)."""
+    other, other_paged = load_parent(parent)
+    order = ("parent", "this", "this", "parent")
 
-    def alternate(call, sets):
-        ms = [cuda_ms(lambda *a, m=m: call(m, *a), sets) for _, m in order]
+    def alternate(call, sets, this=attn, that=other):
+        mods = {"parent": that, "this": this}
+        ms = [cuda_ms(lambda *a, m=mods[w]: call(m, *a), sets)
+              for w in order]
         return {"ms": ms, "parent_ms": (ms[0] + ms[3]) / 2,
                 "this_ms": (ms[1] + ms[2]) / 2}
 
@@ -414,7 +497,7 @@ def versus_phase(attn, parent, shapes, dev):
         out_t, lse_t = attn.flash_fwd_kernel(q, k, v, causal=True)
         torch.cuda.synchronize()
         row = {"phase": "versus", "case": label, "shape": [b, s, 32, 8, 128],
-               "order": [w for w, _ in order],
+               "order": list(order),
                "out_max_abs_diff": (out_p.float() - out_t.float()).abs()
                .max().item(),
                "lse_max_abs_diff": (lse_p - lse_t).abs().max().item(),
@@ -431,6 +514,23 @@ def versus_phase(attn, parent, shapes, dev):
             row["flash_bwd_dkv"] = alternate(
                 lambda m, *a: m.flash_bwd_dkv_kernel(*a, causal=True), sets)
         emit(row)
+    for label, seq_lens, shape in k4_cases:
+        q, kp, vp, pt, lens = k4_inputs(dev, torch.bfloat16, seq_lens, 22,
+                                        **shape)
+        out_p = other_paged.paged_attention_decode_kernel(q, kp, vp, pt, lens)
+        out_t = paged.paged_attention_decode_kernel(q, kp, vp, pt, lens)
+        torch.cuda.synchronize()
+        tokens = sum(seq_lens)
+        emit({"phase": "versus", "case": label, "kernel": "paged_decode",
+              "shape": {"B": len(seq_lens), **shape},
+              "seq_len_max": max(seq_lens), "order": list(order),
+              "out_max_abs_diff": (out_p.float() - out_t.float()).abs()
+              .max().item(),
+              "paged_decode": alternate(
+                  lambda m, *a: m.paged_attention_decode_kernel(*a),
+                  copies((q, kp, vp, pt, lens),
+                         2 * tokens * kp.shape[0] * kp.shape[3] * 2),
+                  this=paged, that=other_paged)})
 
 
 # ---------------------------------------------------------------------------
@@ -839,8 +939,9 @@ def main():
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--versus", metavar="CHECKOUT",
-                    help="also time K1 of another checkout of the repo (the "
-                         "parent commit's) against this tree's, alternating")
+                    help="also time K1-K4 of another checkout of the repo "
+                         "(the parent commit's) against this tree's, "
+                         "alternating")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -905,11 +1006,32 @@ def main():
     k2k3_case(attn, "main_shape_bf16_d64", 2, 2048, 32, 8, 64,
               torch.bfloat16, True, 15, dev, time_it=False)
 
+    # Head dims K1-K3 are not built for: zero-padded to 128.
+    k1_case(attn, "ragged_bf16_d96", 2, 200, 8, 2, 96, torch.bfloat16, True,
+            19, dev, time_it=False)
+    k2k3_case(attn, "ragged_bf16_d96", 2, 200, 8, 2, 96, torch.bfloat16,
+              True, 20, dev, time_it=False)
+
     # K4 against paged_decode_plain.
     lens = [1, 63, 64, 65, 130, 200, 511, 512]
     for dtype in (torch.bfloat16, torch.float32):
         k4_case(paged, f"8b_{str(dtype).split('.')[-1]}", dtype, lens, 5,
                 dev)
+    # Long contexts (Llama-3.1-8B's window allows 32,768), a GQA group of
+    # 16, Gemma-2-9B's head widths (16 heads over 8, D 256), D 64, and
+    # empty rows in f32.
+    k4_case(paged, "long_b8_4096", torch.bfloat16, [4096] * 8, 23, dev,
+            MP=64)
+    k4_case(paged, "long_b1_32768", torch.bfloat16, [32768], 24, dev,
+            MP=512)
+    k4_case(paged, "hg16", torch.bfloat16, [176] * 8, 25, dev, HK=2)
+    k4_case(paged, "d256", torch.bfloat16, [176] * 8, 26, dev, H=16, D=256)
+    k4_case(paged, "d64", torch.bfloat16, [176] * 8, 27, dev, D=64)
+    k4_case(paged, "f32_empty", torch.float32,
+            [0, 1, 176, 0, 65, 512, 300, 0], 28, dev, time_it=False)
+    k4_splits_phase(paged, dev, (
+        ("main_path_decode", [176] * 8, {}, (1, 2, 4, 8)),
+        ("long_b1_32768", [32768], {"MP": 512}, (1, 4, 8, 11, 16, 32))))
 
     tiny_engine_phase(dev)
     entry_phase(dev)
@@ -938,9 +1060,12 @@ def main():
     k23 = k2k3_case(attn, "main_path_backward", 2, 2048, 32, 8, 128,
                     torch.bfloat16, True, 9, dev)
     if args.versus:
-        versus_phase(attn, args.versus,
+        versus_phase(attn, paged, args.versus,
                      (("main_path_train", 2, 2048, True),
-                      ("main_path_forward", b, s, False)), dev)
+                      ("main_path_forward", b, s, False)),
+                     (("main_path_decode", [serving["decode_seq_len"]] * 8,
+                       {}),
+                      ("long_b1_32768", [32768], {"MP": 512})), dev)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
 

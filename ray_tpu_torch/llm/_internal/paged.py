@@ -22,7 +22,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
-from typing import List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -148,8 +148,10 @@ def paged_decode_plain(q: torch.Tensor, k_pages: torch.Tensor,
                        scale: Optional[float] = None) -> torch.Tensor:
     """Plain PyTorch version of K4: q [B,1,H,D] over the keys at positions
     < seq_len (clamped to the page-table row's capacity) of each
-    sequence's pages. A sequence with seq_len 0 gets zeros, as in the
-    kernel."""
+    sequence's pages. As the Pallas kernel does, P is rounded to v's dtype
+    before P·V while the denominator sums the unrounded P, so a bf16 decode
+    matches it bit for bit where it takes one chunk (MP <= 16). A sequence
+    with seq_len 0 gets zeros, as in the kernel."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     h, hk = q.shape[2], k_pages.shape[0]
     k = paged_gather(k_pages, page_table)  # [B,C,HK,D]
@@ -163,15 +165,52 @@ def paged_decode_plain(q: torch.Tensor, k_pages: torch.Tensor,
     s = torch.where(visible[:, None, None, :], s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = exp_f32(s - m) * visible[:, None, None, :]
-    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    out = torch.einsum("bhqk,bkhd->bqhd", p / denom, v.float())
-    return out.to(q.dtype)
+    denom = p.sum(dim=-1).clamp_min(1e-30)  # [B,H,1]
+    acc = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    return (acc / denom.transpose(1, 2)[..., None]).to(q.dtype)
 
 
-_DECODE_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+_DECODE_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                 + [ctypes.c_float, ctypes.c_void_p])
-_DECODE_MAX_HG = 8
-_DECODE_MAX_D = 128
+# K4's grid (csrc/paged_decode.cu): a block takes the query heads of one kv
+# group as the rows of one 16-row tile, and one split (consecutive pages) of
+# one sequence's page-table row, which its 4 warps walk in 16-key tiles.
+_DECODE_ROWS = 16
+# Measured on the H100 (chip_smoke.py, phase k4_splits): one wave of about
+# 2 blocks an SM streams long contexts fastest, and a row short enough for
+# one split skips the merge's round trip.
+_DECODE_MIN_SPLIT_KEYS = 256
+_DECODE_BLOCKS_PER_SM = 2
+_DECODE_MAX_D = 256
+# Per device: the counters with which K4's blocks find the last split of a
+# row; each launch leaves them at 0.
+_decode_counters: Dict[torch.device, torch.Tensor] = {}
+
+
+def decode_split(b: int, hk: int, hg: int, mp: int, ps: int,
+                 num_sms: int) -> Tuple[int, int]:
+    """K4's split of a page-table row: (pages a split, splits a row).
+
+    A pure function of the shapes and the SM count: it never reads
+    seq_lens' values, which would stall the stream on a device sync (and
+    break the capture of a decode window into a CUDA graph). The row's MP
+    pages are cut so that the grid has about ``_DECODE_BLOCKS_PER_SM``
+    blocks an SM over all (sequence, kv head, 16-head tile)s, with at least
+    ``_DECODE_MIN_SPLIT_KEYS`` keys a split; splits past a sequence's
+    seq_len return at once on the card."""
+    row_blocks = b * hk * -(-hg // _DECODE_ROWS)
+    want = max(1, _DECODE_BLOCKS_PER_SM * num_sms // row_blocks)
+    pps = min(mp, max(-(-_DECODE_MIN_SPLIT_KEYS // ps), -(-mp // want)))
+    return pps, -(-mp // pps)
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least n int32 counters on ``device``, zeroed when made."""
+    c = _decode_counters.get(device)
+    if c is None or c.numel() < n:
+        c = torch.zeros(n, dtype=torch.int32, device=device)
+        _decode_counters[device] = c
+    return c
 
 
 def paged_attention_decode_kernel(
@@ -179,10 +218,12 @@ def paged_attention_decode_kernel(
         page_table: torch.Tensor, seq_lens: torch.Tensor,
         scale: Optional[float] = None) -> torch.Tensor:
     """Decode attention q [B,1,H,D] over paged KV without materializing the
-    gathered context. On CUDA tensors this launches K4
-    (csrc/paged_decode.cu: one block per (sequence, kv head), all Hg query
-    heads of the group together); on CPU tensors it is
-    ``paged_decode_plain``."""
+    gathered context. On CUDA tensors this launches K4 once
+    (csrc/paged_decode.cu: each row's context split across blocks as
+    ``decode_split`` says, the splits merged by the row's last block); on
+    CPU tensors it is ``paged_decode_plain``. Any H % HK == 0, and D up to
+    256 in whole 16-byte rows. Launches on one device share its counters,
+    so they run in one stream."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if not q.is_cuda:
         return paged_decode_plain(q, k_pages, v_pages, page_table, seq_lens,
@@ -197,15 +238,16 @@ def paged_attention_decode_kernel(
                         f"{q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
     if k_pages.shape != v_pages.shape or k_pages.shape[3] != d:
         raise ValueError("k/v pages shape mismatch")
-    if h % hk or not 1 <= h // hk <= _DECODE_MAX_HG:
-        raise ValueError(f"paged decode kernel takes 1..{_DECODE_MAX_HG} "
-                         f"query heads per kv head, got H={h} HK={hk}")
+    if hk < 1 or h % hk:
+        raise ValueError(f"paged decode kernel takes a whole number of query "
+                         f"heads per kv head, got H={h} HK={hk}")
     if d > _DECODE_MAX_D or (d * q.element_size()) % 16:
         raise ValueError(f"paged decode kernel takes head_dim up to "
                          f"{_DECODE_MAX_D} in whole 16-byte rows, got {d}")
     if page_table.dim() != 2 or page_table.shape[0] != b or \
-            seq_lens.shape != (b,):
-        raise ValueError("page_table must be [B,MP] and seq_lens [B]")
+            page_table.shape[1] < 1 or seq_lens.shape != (b,) or ps < 1:
+        raise ValueError("page_table must be [B,MP] with MP >= 1, seq_lens "
+                         "[B], and pages at least one slot")
     page_table = page_table.to(torch.int32).contiguous()
     seq_lens = seq_lens.to(torch.int32).contiguous()
     q, k_pages, v_pages = q.contiguous(), k_pages.contiguous(), \
@@ -214,13 +256,24 @@ def paged_attention_decode_kernel(
         if not t.is_cuda or t.data_ptr() % 16:
             raise ValueError("paged decode kernel takes 16-byte aligned "
                              "CUDA tensors")
+    hg, mp = h // hk, page_table.shape[1]
+    pps, splits = decode_split(
+        b, hk, hg, mp, ps,
+        torch.cuda.get_device_properties(q.device).multi_processor_count)
     out = torch.empty_like(q)
+    # Each split's partial sums [B,HK,splits,Hg,D] and (max, denominator).
+    acc_ws = torch.empty(b * hk * splits * hg * d, dtype=torch.float32,
+                         device=q.device)
+    ml_ws = torch.empty(b * hk * splits * hg * 2, dtype=torch.float32,
+                        device=q.device)
+    counters = _counters(q.device, b * hk * -(-hg // _DECODE_ROWS))
     name = ("paged_decode_bf16" if q.dtype == torch.bfloat16
             else "paged_decode_f32")
     fn = native.function("paged_decode", name, _DECODE_ARGS)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-             b, hk, h // hk, num_pages, ps, page_table.shape[1], d, scale,
+             acc_ws.data_ptr(), ml_ws.data_ptr(), counters.data_ptr(),
+             b, hk, hg, num_pages, ps, mp, d, pps, splits, scale,
              torch.cuda.current_stream(q.device).cuda_stream)
     native.check(err, name)
     paged_attention_decode_kernel.launches += 1

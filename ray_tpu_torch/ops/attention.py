@@ -12,7 +12,9 @@ and its backward ``csrc/flash_bwd.cu`` (K2 and K3, the Pallas
 ``_flash_dq_kernel`` and ``_flash_dkv_kernel``); on a CPU tensor they run
 ``flash_attention_fwd_plain`` and ``flash_attention_bwd_plain``, the plain
 PyTorch versions of the same functions. There is no fallback between the
-two: a CUDA tensor the kernels do not take raises.
+two: a CUDA tensor the kernels do not take raises. A head dim the kernels
+are not built for, up to 128, runs them on q, k and v padded with zero
+columns (``kernel_head_dim``); past 128 it raises.
 """
 
 from __future__ import annotations
@@ -319,17 +321,75 @@ def flash_bwd_dkv_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_bwd_dkv_kernel.launches = 0
 
 
+def kernel_head_dim(d: int, dtype: torch.dtype) -> int:
+    """The head dim K1–K3 run a head dim of ``d`` at: in bf16 the next of
+    ``_BF16_HEAD_DIMS``, in f32 the next multiple of 8; past 128, ``d``
+    itself (which the kernels refuse)."""
+    if d > 128:
+        return d
+    if dtype == torch.bfloat16:
+        return next(dp for dp in _BF16_HEAD_DIMS if d <= dp)
+    return -(-d // 8) * 8
+
+
+def pad_head_dim(x: torch.Tensor, dp: int) -> torch.Tensor:
+    """``x`` with zero columns appended to its last dim up to ``dp``. Zero
+    columns of q and k add nothing to QKᵀ, and zero columns of v, dO give
+    zero columns of the output and the gradients, so the softmax, LSE and
+    Delta do not change."""
+    d = x.shape[-1]
+    return x if d == dp else torch.nn.functional.pad(x, (0, dp - d))
+
+
+def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool = True, scale: Optional[float] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``FlashAttention``'s forward on CUDA tensors: K1 at
+    ``kernel_head_dim``, on q, k and v padded with zero columns, the output
+    sliced back to D. ``scale`` defaults to the true D's."""
+    d = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    dp = kernel_head_dim(d, q.dtype)
+    q, k, v = (pad_head_dim(t, dp).contiguous() for t in (q, k, v))
+    out, lse = flash_fwd_kernel(q, k, v, causal=causal, scale=scale)
+    return (out if dp == d else out[..., :d].contiguous()), lse
+
+
+def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                   *, causal: bool = True, scale: Optional[float] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``FlashAttention``'s backward on CUDA tensors: Delta from the true
+    out and dO, then K2 and K3 at ``kernel_head_dim`` on q, k, v and dO
+    padded with zero columns, dq, dk and dv sliced back to D."""
+    d = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    dp = kernel_head_dim(d, q.dtype)
+    dout = dout.contiguous()
+    delta = flash_bwd_delta(out, dout)
+    q, k, v, dout = (pad_head_dim(t, dp).contiguous()
+                     for t in (q, k, v, dout))
+    dq = flash_bwd_dq_kernel(q, k, v, dout, lse, delta, causal=causal,
+                             scale=scale)
+    dk, dv = flash_bwd_dkv_kernel(q, k, v, dout, lse, delta, causal=causal,
+                                  scale=scale)
+    if dp != d:
+        dq, dk, dv = (t[..., :d].contiguous() for t in (dq, dk, dv))
+    return dq, dk, dv
+
+
 class FlashAttention(torch.autograd.Function):
     """Flash attention with its backward, the counterpart of the JAX
     package's ``_flash_core`` custom_vjp. On CUDA tensors the forward
-    launches K1 and the backward K2 and K3; on CPU tensors both run their
-    plain versions. There is no fallback between the two."""
+    launches K1 and the backward K2 and K3 (``flash_fwd_cuda``,
+    ``flash_bwd_cuda``); on CPU tensors both run their plain versions.
+    There is no fallback between the two."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float):
         if q.is_cuda:
             q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-            out, lse = flash_fwd_kernel(q, k, v, causal=causal, scale=scale)
+            out, lse = flash_fwd_cuda(q, k, v, causal=causal, scale=scale)
         else:
             out, lse = flash_attention_fwd_plain(q, k, v, causal, scale)
         ctx.save_for_backward(q, k, v, out, lse)
@@ -343,13 +403,8 @@ class FlashAttention(torch.autograd.Function):
         if not q.is_cuda:
             return (*flash_attention_bwd_plain(q, k, v, out, lse, dout,
                                                causal, scale), None, None)
-        dout = dout.contiguous()
-        delta = flash_bwd_delta(out, dout)
-        dq = flash_bwd_dq_kernel(q, k, v, dout, lse, delta, causal=causal,
-                                 scale=scale)
-        dk, dv = flash_bwd_dkv_kernel(q, k, v, dout, lse, delta,
-                                      causal=causal, scale=scale)
-        return dq, dk, dv, None, None
+        return (*flash_bwd_cuda(q, k, v, out, lse, dout, causal=causal,
+                                scale=scale), None, None)
 
 
 def flash_attention(
@@ -367,7 +422,8 @@ def flash_attention(
 
     CUDA tensors go through K1 (forward) and K2/K3 (backward), which index
     the kv head as h // (H/Hkv) instead of materializing the GQA repeat and
-    use their own fixed tiles with masked ragged tails; ``block_q``/
+    use their own fixed tiles with masked ragged tails (a head dim up to
+    128 they are not built for is zero-padded); ``block_q``/
     ``block_k`` are accepted for the JAX contract and do not change the
     result. CPU tensors go through ``flash_attention_fwd_plain`` and
     ``flash_attention_bwd_plain``."""

@@ -272,3 +272,76 @@ def test_flash_backward_kernels_are_deterministic_on_cuda(cuda, d):
             for _ in range(2)]
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+def test_kernel_head_dim():
+    """The head dim K1–K3 run a head dim at: bf16 the next of 32, 64 and
+    128, f32 the next multiple of 8, and past 128 the head dim itself
+    (which the kernels refuse)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert [tattn.kernel_head_dim(d, bf16) for d in (8, 32, 33, 64, 80, 96,
+                                                    128, 136)] == \
+        [32, 32, 64, 64, 128, 128, 128, 136]
+    assert [tattn.kernel_head_dim(d, f32) for d in (4, 8, 36, 96, 128,
+                                                   256)] == \
+        [8, 8, 40, 96, 128, 256]
+
+
+@pytest.mark.parametrize("d,dtype", [(80, torch.bfloat16),
+                                     (96, torch.bfloat16),
+                                     (36, torch.float32)])
+def test_zero_padded_head_dim_matches_plain(d, dtype):
+    """What FlashAttention does on the card for a head dim its kernels are
+    not built for: q, k, v and dO padded with zero columns to
+    ``kernel_head_dim(d, dtype)``, the plain forward and backward run at
+    that width and sliced back to d, equal the plain versions at d (in f32
+    on the CPU, at the f32 tolerance); the padded columns of the output and
+    of every gradient are exactly zero."""
+    dp = tattn.kernel_head_dim(d, dtype)
+    assert dp > d
+    q, k, v = _t(*_qkv(sq=64, hkv=2, d=d))
+    dout = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        q.shape, dtype=np.float32))
+    scale = 1 / math.sqrt(d)
+    out, lse = tattn.flash_attention_fwd_plain(q, k, v, True, scale)
+    grads = tattn.flash_attention_bwd_plain(q, k, v, out, lse, dout, True,
+                                            scale)
+    qp, kp, vp, dop = (tattn.pad_head_dim(t, dp) for t in (q, k, v, dout))
+    out_p, lse_p = tattn.flash_attention_fwd_plain(qp, kp, vp, True, scale)
+    grads_p = tattn.flash_attention_bwd_plain(qp, kp, vp, out_p, lse_p, dop,
+                                              True, scale)
+    torch.testing.assert_close(lse_p, lse, **TOL)
+    for got, ref in zip((out_p, *grads_p), (out, *grads)):
+        assert got.shape[-1] == dp
+        torch.testing.assert_close(got[..., :d], ref, **TOL)
+        assert not got[..., d:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_pads_head_dim_on_cuda(cuda, causal):
+    """bf16 head dim 96, which K1–K3 are not built for, through
+    flash_attention forward and backward on the card: the kernels run at
+    128 on zero-padded inputs, and the output and gradients match the plain
+    versions at 96 (the tolerances of the K1 and K2/K3 tests above)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = [t.to(cuda, torch.bfloat16).requires_grad_()
+               for t in _t(*_qkv(sq=200, hkv=2, d=96))]
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)
+                       ).to(cuda, torch.bfloat16)
+    before = tattn.flash_fwd_kernel.launches
+    out = tattn.flash_attention(q, k, v, causal=causal)
+    dq, dk, dv = torch.autograd.grad(out, (q, k, v), dout)
+    assert tattn.flash_fwd_kernel.launches == before + 1
+    q, k, v = q.detach(), k.detach(), v.detach()
+    ref, _ = tattn.flash_attention_fwd_plain(q, k, v, causal)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    k_out, k_lse = tattn.flash_fwd_cuda(q, k, v, causal=causal,
+                                        scale=1 / math.sqrt(96))
+    refs = tattn.flash_attention_bwd_plain(q, k, v, k_out, k_lse, dout,
+                                           causal)
+    for got, ref in zip((dq, dk, dv), refs):
+        assert got.shape == ref.shape
+        torch.testing.assert_close(got.float(), ref.float(), atol=5e-2,
+                                   rtol=5e-2)

@@ -3,6 +3,8 @@ ray_tpu.llm._internal.paged on the same numpy inputs. The JAX decode kernel
 runs in interpret mode on the CPU, as tests/test_llm_engine.py:112 runs it;
 f32 tolerance 2e-5 as there."""
 
+import inspect
+import itertools
 import random
 
 import jax.numpy as jnp
@@ -35,10 +37,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def _decode_inputs(seq_lens, seed=0):
-    """The shapes of tests/test_llm_engine.py:124-131, page table permuted."""
+def _decode_inputs(seq_lens, seed=0, H=8, HK=2, D=64, PS=8, MP=4, P=16):
+    """The shapes of tests/test_llm_engine.py:124-131 unless given, page
+    table permuted."""
     rng = np.random.default_rng(seed)
-    B, H, HK, D, PS, MP, P = 3, 8, 2, 64, 8, 4, 16
+    B = len(seq_lens)
     q = rng.standard_normal((B, 1, H, D), dtype=np.float32)
     k_pages = rng.standard_normal((HK, P, PS, D), dtype=np.float32)
     v_pages = rng.standard_normal((HK, P, PS, D), dtype=np.float32)
@@ -116,6 +119,49 @@ def test_paged_decode_plain_matches_pallas_kernel(seq_lens):
                                                interpret=True)
     got = tpaged.paged_decode_plain(*map(torch.from_numpy, args))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("seq_lens", [
+    [5, 17, 31],
+    [0, 9, 40],
+])
+def test_paged_decode_plain_matches_pallas_kernel_bf16(seq_lens):
+    """bf16: the plain version rounds P to bf16 before P·V and sums the
+    denominator from the unrounded P, as the Pallas kernel does, so where
+    that kernel takes one chunk (MP 4 here) the two agree bit for bit."""
+    args = _decode_inputs(seq_lens, seed=7)
+    ref = jpaged.paged_attention_decode_kernel(
+        *(jnp.asarray(a).astype(jnp.bfloat16) if a.dtype == np.float32
+          else jnp.asarray(a) for a in args), interpret=True)
+    got = tpaged.paged_decode_plain(
+        *(torch.from_numpy(a).to(torch.bfloat16) if a.dtype == np.float32
+          else torch.from_numpy(a) for a in args))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(ref.astype(jnp.float32)))
+
+
+def test_decode_split_is_a_function_of_shapes():
+    """K4's split of a page-table row is picked on the host from the shapes
+    and the SM count alone: it takes no seq_lens, so choosing it never
+    waits on the card (nor breaks the capture of a decode step)."""
+    assert list(inspect.signature(tpaged.decode_split).parameters) == [
+        "b", "hk", "hg", "mp", "ps", "num_sms"]
+    # The 8B serving shape: a 512-key row in 2 splits, so its 176 live
+    # keys take one split and no merge.
+    assert tpaged.decode_split(8, 8, 4, 8, 64, 132) == (4, 2)
+    # B=1 x 32768 keys: 32 splits of 1,024 keys, 256 blocks on 132 SMs.
+    assert tpaged.decode_split(1, 8, 4, 512, 64, 132) == (16, 32)
+    for b, hk, hg, mp, ps in itertools.product(
+            [1, 3, 8], [1, 2, 8], [1, 4, 16, 32], [1, 7, 64, 512],
+            [1, 4, 16, 64]):
+        pps, splits = tpaged.decode_split(b, hk, hg, mp, ps, 132)
+        assert 1 <= pps <= mp and splits == -(-mp // pps)
+        # At least 256 keys a split, unless the whole row is shorter.
+        assert pps * ps >= min(256, mp * ps)
+        # No more blocks than 2 an SM, unless a row is already one split.
+        assert splits == 1 or b * hk * -(-hg // 16) * splits <= 2 * 132 \
+            or pps * ps < 256 + ps
 
 
 def test_decode_on_cpu_takes_the_plain_path():
@@ -207,3 +253,30 @@ def test_paged_decode_kernel_matches_plain_on_cuda(cuda, dtype, atol):
                                     seq_lens)
     assert tpaged.paged_attention_decode_kernel.launches == before + 1
     torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2),
+                                        (torch.float32, 2e-5)])
+@pytest.mark.parametrize("H,HK,D", [(32, 2, 128), (16, 8, 256), (8, 2, 72),
+                                    (40, 2, 64)])
+def test_paged_decode_kernel_shapes_on_cuda(cuda, dtype, atol, H, HK, D):
+    """K4 at a GQA group of 16 and 20 (two 16-head tiles), head dims 256 and
+    72, with an empty sequence and rows that span 1 and 2 splits (MP 32 ×
+    ps 16, 256-key splits): against its plain version at the tolerances
+    above, and two launches give the same bits."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k_pages, v_pages, page_table, seq_lens = [
+        torch.from_numpy(a).to(cuda) for a in _decode_inputs(
+            [0, 37, 256, 400, 512], seed=11, H=H, HK=HK, D=D, PS=16, MP=32,
+            P=5 * 32 + 1)]
+    q, k_pages, v_pages = (t.to(dtype) for t in (q, k_pages, v_pages))
+    runs = [tpaged.paged_attention_decode_kernel(q, k_pages, v_pages,
+                                                 page_table, seq_lens)
+            for _ in range(2)]
+    ref = tpaged.paged_decode_plain(q, k_pages, v_pages, page_table,
+                                    seq_lens)
+    assert torch.equal(runs[0], runs[1])
+    assert not runs[0][0].any()  # seq_len 0 gives zeros
+    torch.testing.assert_close(runs[0].float(), ref.float(), atol=atol,
+                               rtol=atol)

@@ -93,6 +93,15 @@ def main():
                  err(tpaged.paged_decode_plain(*map(t, (dq, kp, vp, pt,
                                                         lens))), jout),
                  2e-5))
+    # bf16: both round P to bf16 before P·V (identical bits at MP 4).
+    bf = jpaged.paged_attention_decode_kernel(
+        *(jnp.asarray(a).astype(jnp.bfloat16) for a in (dq, kp, vp)),
+        jnp.asarray(pt), jnp.asarray(lens), interpret=True)
+    rows.append(("llm/_internal/paged.py `paged_decode_plain` (bf16)",
+                 "`_paged_decode_kernel` (interpret, bf16)",
+                 err(tpaged.paged_decode_plain(
+                     *(t(a).to(torch.bfloat16) for a in (dq, kp, vp)),
+                     t(pt), t(lens)).float(), bf.astype(jnp.float32)), 0.0))
     qpos = (lens - 1)[:, None]
     jg = jpaged.paged_attention(*map(jnp.asarray, (dq, kp, vp, pt, qpos,
                                                    lens)), use_kernel=False)
