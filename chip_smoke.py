@@ -11,6 +11,11 @@ serves Llama-3-8B (all 32 layers, bf16, seeded random weights) through
 LLMServer and teacher-forces the answers through the cacheless flash
 forward, then trains at the Llama-3-8B widths (8 of 32 layers, bf16 compute
 over f32 parameters, AdamW) through the flash forward and backward kernels.
+Then int8 weights (models/quant.py): a 2-layer 8B forward dequantized module
+by module against the whole tree dequantized (same bits), and the
+reference's int8 8B serving config (all 32 layers, no bf16 tree resident);
+and a switch-routed MoE (models/moe.py): one MoEMlp at 8B widths against
+its f32 oracle, and a 4-layer MoE Llama at 8B widths served like the rest.
 Each phase prints one JSON line; the line before the last repeats the
 card's name and power limit from nvidia-smi, and the last line is
 
@@ -637,17 +642,11 @@ def serve_8b_phase(dev, wrappers):
         torch.cuda.reset_peak_memory_stats()
         waves = [wave() for _ in range(n_waves)]
         k4_serving = wrappers["paged_decode"].launches
-        gaps, finite = [], True
-        for prompts, res, _ in waves:
-            ids = torch.tensor([p + r["tokens"]
-                                for p, r in zip(prompts, res)], device=dev)
-            with torch.no_grad():
-                logits = srv.model(ids).float()
-            finite = finite and bool(torch.isfinite(logits).all())
-            for b, r in enumerate(res):
-                for i, tok in enumerate(r["tokens"]):
-                    row = logits[b, prompt_len - 1 + i]
-                    gaps.append((row.max() - row[tok]).item())
+        gaps, finite, shape = teacher_gaps(
+            srv.model, [(prompts, None, [r["tokens"] for r in res], None,
+                         None) for prompts, res, _ in waves], prompt_len,
+            dev)
+        gaps = [g for w in gaps for r in w for g in r]
         torch.cuda.synchronize()
         launches = read_counts(wrappers)
         k1_forward = launches["flash_fwd"]
@@ -691,10 +690,13 @@ def serve_8b_phase(dev, wrappers):
           "ok": ok_tokens and ok_gap and ok_launch})
     emit(profile)
     return {**launches, "decode_seq_len": prompt_len + max_tokens,
-            "forward_shape": list(ids.shape)}
+            "forward_shape": shape,
+            "summary": {"tokens_per_s": tps,
+                        "ttft_mean_s_median": float(np.median(ttft_mean)),
+                        "setup_s": setup_s, "peak_mem_gb": peak_gb}}
 
 
-def profile_engine(engine, prompts, max_tokens):
+def profile_engine(engine, prompts, max_tokens, phase="serve_8b_profile"):
     """One more wave through the server's engine, stepped from this thread
     (the server's thread is stopped) under torch.profiler: the device's
     busy share of the wave's wall time and the operators that take the
@@ -715,8 +717,7 @@ def profile_engine(engine, prompts, max_tokens):
             steps += 1
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    return profile_summary("serve_8b_profile", prof, wall,
-                           engine_steps=steps)
+    return profile_summary(phase, prof, wall, engine_steps=steps)
 
 
 def profile_summary(phase, prof, wall, **extra):
@@ -934,6 +935,419 @@ def train_8b_phase(dev, wrappers):
 
 
 # ---------------------------------------------------------------------------
+# int8 serving (models/quant.py) and switch-routed MoE (models/moe.py).
+GB = 1e9
+# Peak device memory of the int8 8B phase must stay under its int8 tree
+# plus this: KV pages (0.55 GB), one dequantized module at a time (lm_head's
+# bf16 copy, 1.05 GB, is the largest) and the teacher-forced logits (8 x 176
+# x 128,256 in bf16 and f32, 1.08 GB). A resident bf16 tree would add 16.06.
+INT8_HEADROOM = 5 * GB
+# MoEMlp (bf16) against moe_reference (f32) at the 8B widths. The bf16
+# roundings of the gate and up products, of silu(gate) * up and of the
+# output leave an error of ~0.4 % of the reference's RMS (RMS over the
+# output; 0.42 % on the CPU at 512/1024 widths), and the largest of ~1M
+# elements sits ~5.3 such sigmas out. So the RMS error is held to 1e-2 of
+# the reference's RMS, and each element to atol 4e-2 of it (~10 sigma)
+# plus rtol 2e-2 (as every bf16 check here). One token's output left out
+# of the oracle (what a dropped or misrouted token does) must fail.
+MOE_RTOL = 2e-2
+MOE_ATOL_RMS = 4e-2
+MOE_REL_RMS = 1e-2
+# serve_moe, served against teacher-forced (fixed limits; the run is seeded
+# and gave the same readings in each of its H100 calls, PERF.md §6):
+# router logits where every earlier layer routed alike differ by at most
+# MOE_ROUTER_TOL (read 0.274 where routes agreed); at least
+# MOE_TEACHER_SHARE of the answer positions route alike in every layer
+# (read 1,082 of 1,152 = 0.939); the answer positions routed apart keep
+# their teacher gap within MOE_APART_GAP_TOL (read 0.625).
+MOE_ROUTER_TOL = 0.4
+MOE_TEACHER_SHARE = 0.9
+MOE_APART_GAP_TOL = 1.0
+
+
+def engine_waves(engine, vocab, n_waves, max_tokens, seed, n_req=8,
+                 prompt_len=128):
+    """Waves of n_req requests of prompt_len seeded tokens, all added
+    before the first step (one admission), stepped to the end from this
+    thread, as ray_tpu/benchmarks/model_bench.py's _serving_wave does.
+    Returns [(prompts, requests, tokens, ttft_s, wall_s)] per wave."""
+    from ray_tpu_torch.llm import Request
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for w in range(n_waves):
+        prompts = [rng.integers(0, vocab, prompt_len).tolist()
+                   for _ in range(n_req)]
+        reqs = [Request(f"w{w}r{i}", p, max_tokens=max_tokens)
+                for i, p in enumerate(prompts)]
+        toks = {r.request_id: [] for r in reqs}
+        ttft = {}
+        t = time.perf_counter()
+        for r in reqs:
+            engine.add_request(r)
+        while engine.has_work():
+            for so in engine.step():
+                toks[so.request_id].append(so.token)
+                ttft.setdefault(so.request_id, time.perf_counter() - t)
+        wall = time.perf_counter() - t
+        out.append((prompts, reqs, [toks[r.request_id] for r in reqs],
+                    [ttft[r.request_id] for r in reqs], wall))
+    return out
+
+
+def teacher_gaps(forward, waves, prompt_len, dev):
+    """Teacher-forced cacheless forward (K1) over prompt + answer of every
+    request of each wave: for each generated token, how far its logit lies
+    below its row's maximum. Returns (gaps [wave][req][token], all logits
+    finite, the forward's [B, S])."""
+    gaps, finite = [], True
+    for prompts, _, toks, _, _ in waves:
+        ids = torch.tensor([p + t for p, t in zip(prompts, toks)],
+                           device=dev)
+        with torch.no_grad():
+            logits = forward(ids).float()
+        finite = finite and bool(torch.isfinite(logits).all())
+        rows = logits[:, prompt_len - 1:prompt_len - 1 + len(toks[0])]
+        chosen = rows.gather(-1, torch.tensor(toks, device=dev)[..., None])
+        gaps.append((rows.max(-1).values - chosen[..., 0]).tolist())
+        del logits, rows
+    return gaps, finite, list(ids.shape)
+
+
+def serving_row(phase, cfg, waves, setup_s, K, max_tokens, launches,
+                k4_expected, k1_expected, max_gap, peak_gb, ok, **extra):
+    tps = [sum(len(t) for t in w[2]) / w[4] for w in waves]
+    ttft_mean = [float(np.mean(w[3])) for w in waves]
+    return {"phase": phase, "layers": cfg.num_layers,
+            "dtype": str(cfg.dtype).split(".")[-1],
+            "requests": len(waves[0][0]),
+            "prompt_tokens": len(waves[0][0][0]), "max_tokens": max_tokens,
+            "decode_steps": K, "waves": len(waves), "setup_s": setup_s,
+            "wall_s": [w[4] for w in waves], "tokens_per_s": tps,
+            "tokens_per_s_median": float(np.median(tps)),
+            "ttft_mean_s": ttft_mean, "ttft_max_s": [max(w[3]) for w in waves],
+            "ttft_mean_s_median": float(np.median(ttft_mean)),
+            "peak_mem_gb": peak_gb, "teacher_max_gap": max_gap,
+            "teacher_tol": TEACHER_TOL, "launches": launches,
+            "paged_decode_expected": k4_expected,
+            "flash_fwd_expected": k1_expected, **extra, "ok": ok}
+
+
+def launch_ok(launches, k4, k1):
+    return (launches["paged_decode"] == k4 and launches["flash_fwd"] == k1
+            and launches["flash_bwd_dq"] == 0
+            and launches["flash_bwd_dkv"] == 0)
+
+
+def quant_check_phase(dev):
+    """Llama-3-8B widths, 2 layers, int8 weights from random_quantized_like
+    on the card: the logits of a [8, 128] forward with each module
+    dequantized at its use (WeightsAtUse) equal those of the whole tree
+    dequantized first, bit for bit. Then quantize_tree on the card: layer
+    0's weights (seeded normal, bf16) quantized on the card and on the CPU
+    give the same int8 and scales, bit for bit."""
+    from ray_tpu_torch.models.convert import is_qleaf
+    from ray_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    from ray_tpu_torch.models.quant import (WeightsAtUse, dequantize_tree,
+                                            quantize_tree, quantized_bytes,
+                                            random_quantized_like)
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=2,
+                              remat=False)
+    qp = random_quantized_like(cfg, device=dev)
+    model = LlamaModel(cfg, device="meta")
+    n_params = sum(p.numel() for p in model.parameters())
+    ids = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (8, 128))).to(dev)
+    with torch.no_grad():
+        at_use = model(ids, weights=WeightsAtUse(qp, dequantize_tree))
+        whole = torch.func.functional_call(model, dequantize_tree(qp),
+                                           (ids,))
+    same = torch.equal(at_use, whole)
+    finite = bool(torch.isfinite(at_use).all())
+    del at_use, whole
+    gen = torch.Generator(device=dev).manual_seed(4)
+    layer0 = {name: 0.02 * torch.randn(p.shape, generator=gen, device=dev,
+                                       dtype=torch.bfloat16)
+              for name, p in model.named_parameters()
+              if name.startswith("layers.0.")}
+    on_card = quantize_tree(layer0, cfg, device=dev)
+    on_cpu = quantize_tree({k: v.cpu() for k, v in layer0.items()}, cfg,
+                           device="cpu")
+    n_q = sum(is_qleaf(v) for v in on_card.values())
+    differ = {"int8": 0, "scale": 0, "other": 0, "not_on_card": 0}
+    for k, v in on_card.items():
+        pairs = ([("int8", v["__q__"], on_cpu[k]["__q__"]),
+                  ("scale", v["s"], on_cpu[k]["s"])] if is_qleaf(v)
+                 else [("other", v, on_cpu[k])])
+        for field, card, cpu in pairs:
+            differ["not_on_card"] += int(not card.is_cuda)
+            differ[field] += int((card.cpu() != cpu).sum())
+    q_same = n_q > 0 and not any(differ.values())
+    del layer0, on_card, on_cpu
+    ok = same and finite and q_same
+    check(ok, "int8 at-use dequant vs whole tree; quantize_tree card vs CPU")
+    emit({"phase": "quant_check", "layers": cfg.num_layers,
+          "shape": list(ids.shape), "same_bits": same, "finite": finite,
+          "quantize_tree_card_vs_cpu_same_bits": q_same,
+          "quantize_tree_leaves": n_q, "quantize_tree_elements_differ": differ,
+          "quantized_bytes": quantized_bytes(qp),
+          "bf16_bytes": 2 * n_params, "params": n_params, "ok": ok})
+
+
+def serve_8b_int8_phase(dev, wrappers, serve_8b):
+    """The reference's int8 8B serving config
+    (ray_tpu/benchmarks/model_bench.py:283-318): Llama-3-8B, all 32
+    layers, max_seq_len 1024, int8 weights from random_quantized_like built
+    on the card, param_transform=dequantize_tree (each module dequantized
+    at its use), a meta model; one warm wave of 8 tokens, then three
+    measured waves of 8 requests x 128 prompt tokens x 48 new tokens, each
+    checked by a teacher-forced cacheless forward (K1)."""
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine
+    from ray_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    from ray_tpu_torch.models.quant import (WeightsAtUse, dequantize_tree,
+                                            quantized_bytes,
+                                            random_quantized_like)
+
+    n_waves, max_tokens, K = 3, 48, 8
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / GB
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), max_seq_len=1024,
+                              remat=False)
+    qp = random_quantized_like(cfg, device=dev)
+    model = LlamaModel(cfg, device="meta")
+    engine = LLMEngine(model, qp, EngineConfig(
+        max_seqs=8, page_size=64, max_pages_per_seq=8, decode_steps=K),
+        param_transform=dequantize_tree, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    qbytes = quantized_bytes(qp)
+    kv_bytes = sum(nbytes(*c) for c in engine.caches)
+    engine_waves(engine, cfg.vocab_size, 1, 8, seed=10)  # warm
+    zero_counts(wrappers)
+    waves = engine_waves(engine, cfg.vocab_size, n_waves, max_tokens,
+                         seed=11)
+    at_use = WeightsAtUse(engine.params, dequantize_tree)
+    gaps, finite, shape = teacher_gaps(
+        lambda ids: model(ids, weights=at_use), waves, 128, dev)
+    torch.cuda.synchronize()
+    launches = read_counts(wrappers)
+    peak = torch.cuda.max_memory_allocated()
+    k4 = n_waves * cfg.num_layers * K * math.ceil((max_tokens - 1) / K)
+    k1 = n_waves * cfg.num_layers
+    max_gap = max(g for w in gaps for r in w for g in r)
+    ok_tokens = all(len(t) == max_tokens for w in waves for t in w[2])
+    ok_mem = peak < qbytes + INT8_HEADROOM
+    ok = (ok_tokens and max_gap <= TEACHER_TOL and finite and ok_mem
+          and launch_ok(launches, k4, k1))
+    check(ok, "8B int8 serving")
+    profile = profile_engine(engine, [
+        np.random.default_rng(12).integers(0, cfg.vocab_size, 128).tolist()
+        for _ in range(8)], max_tokens, "serve_8b_int8_profile")
+    emit(serving_row(
+        "serve_8b_int8", cfg, waves, setup_s, K, max_tokens, launches, k4,
+        k1, max_gap, peak / GB, ok, weights="int8 (random_quantized_like)",
+        quantized_gb=qbytes / GB, kv_pages_gb=kv_bytes / GB,
+        peak_limit_gb=(qbytes + INT8_HEADROOM) / GB,
+        allocated_at_start_gb=base_gb,
+        lm_head_bf16_gb=2 * cfg.vocab_size * cfg.hidden_size / GB,
+        serve_8b=serve_8b))
+    emit(profile)
+    del engine, qp, at_use
+    return {**launches, "forward_shape": shape}
+
+
+class InputLog:
+    """Forward hooks that keep each MoE layer's input of every call (no
+    device work), for the routes to be recomputed after a run."""
+
+    def __init__(self, model):
+        self.inputs = [[] for _ in model.layers]
+        self.handles = [
+            layer.mlp.register_forward_hook(
+                lambda m, args, out, i=i: self.inputs[i].append(args[0]))
+            for i, layer in enumerate(model.layers)]
+
+    def take(self):
+        got, self.inputs = self.inputs, [[] for _ in self.inputs]
+        return got
+
+    def close(self):
+        for h in self.handles:
+            h.remove()
+
+
+def router_logits(model, inputs):
+    """Each layer's router logits [B, S, E] (f32) on its recorded input:
+    the product MoEMlp computed, on the same input."""
+    with torch.no_grad():
+        return [[layer.mlp.router(x.float()) for x in xs]
+                for layer, xs in zip(model.layers, inputs)]
+
+
+def moe_check_phase(dev, h=4096, inter=14336, e=8):
+    """One MoEMlp at the Llama-3-8B widths (8 experts, capacity factor 8, so
+    nothing is dropped), bf16, on the card against moe_reference in f32 on
+    the same (bf16) weights and inputs."""
+    from ray_tpu_torch.models.moe import MoEMlp, moe_reference
+
+    torch.manual_seed(0)
+    layer = MoEMlp(h, inter, e, capacity_factor=float(e),
+                   dtype=torch.bfloat16, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    with torch.no_grad():
+        layer.router.weight.normal_(0.0, 1.0 / math.sqrt(h), generator=g)
+        x = torch.randn((2, 128, h), generator=g, device=dev).to(
+            torch.bfloat16)
+        out = layer(x)
+        params = {"router": {"kernel": layer.router.weight.T},
+                  "gate_kernel": layer.gate_kernel,
+                  "up_kernel": layer.up_kernel,
+                  "down_kernel": layer.down_kernel}
+        ref = moe_reference(x, params, e)
+        routes = (x.float() @ params["router"]["kernel"]).argmax(-1)
+        dropped = ref.clone()
+        dropped[0, 0] = 0.0
+    torch.cuda.synchronize()
+    rms = ref.square().mean().sqrt().item()
+    atol = MOE_ATOL_RMS * rms
+    used = limit_used(out, ref, atol, MOE_RTOL)
+    used_dropped = limit_used(out, dropped, atol, MOE_RTOL)
+    err = (out.float() - ref).abs().max().item()
+    rel_rms = (out.float() - ref).square().mean().sqrt().item() / rms
+    ok = (used <= 1 and rel_rms <= MOE_REL_RMS and used_dropped > 1
+          and bool(torch.isfinite(out).all()))
+    check(ok, "MoEMlp vs moe_reference")
+    with torch.no_grad():
+        ms = cuda_ms(layer, [(x,)], iters=10)
+    emit({"phase": "moe_check", "shape": [2, 128, h], "experts": e,
+          "intermediate": inter, "capacity": layer.capacity(128),
+          "tokens_per_expert": torch.bincount(routes.flatten(),
+                                              minlength=e).tolist(),
+          "max_abs_err": err, "ref_rms": rms, "rel_rms_err": rel_rms,
+          "rel_rms_limit": MOE_REL_RMS, "atol": atol, "rtol": MOE_RTOL,
+          "limit_used": used, "one_token_dropped_limit_used": used_dropped,
+          "ms": ms, "ok": ok})
+
+
+def serve_moe_phase(dev, wrappers):
+    """A switch-routed MoE Llama at the Llama-3-8B widths (8 experts,
+    capacity factor 8 = E, so no token is dropped), 4 of 32 layers, bf16,
+    seeded random weights, through the engine: the waves and checks of
+    serve_8b_int8. Bf16 rounding differs between the paths (K1 and
+    batch-1408 products against K4 and batch-8 ones), so the router logits
+    differ a little and a token whose two best experts nearly tie may go
+    to either. All limits are fixed (MOE_ROUTER_TOL and below): the router
+    logits of the two paths differ by at most MOE_ROUTER_TOL at every
+    position in every layer up to and including the first where its routes
+    differ (so a route can flip only where the teacher's two best logits
+    lie within twice that); the teacher-forced gap is held to TEACHER_TOL
+    at the answer positions routed alike in every layer, which must be at
+    least MOE_TEACHER_SHARE of them, and to MOE_APART_GAP_TOL at the
+    rest."""
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine
+    from ray_tpu_torch.models.llama import (LlamaConfig, LlamaModel,
+                                            init_params)
+
+    n_waves, max_tokens, K, prompt_len = 3, 48, 8, 128
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=4,
+                              num_experts=8, moe_capacity_factor=8.0,
+                              max_seq_len=1024, remat=False)
+    model = LlamaModel(cfg, device=dev)
+    init_params(model, torch.Generator(device=dev).manual_seed(0))
+    engine = LLMEngine(model, None, EngineConfig(
+        max_seqs=8, page_size=64, max_pages_per_seq=8, decode_steps=K),
+        device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    engine_waves(engine, cfg.vocab_size, 1, 8, seed=20)  # warm
+    zero_counts(wrappers)
+    log = InputLog(model)
+    waves = engine_waves(engine, cfg.vocab_size, n_waves, max_tokens,
+                         seed=21)
+    served = log.take()
+    gaps, finite, shape = teacher_gaps(model, waves, prompt_len, dev)
+    taught = log.take()
+    log.close()
+    torch.cuda.synchronize()
+    launches = read_counts(wrappers)
+    peak = torch.cuda.max_memory_allocated()
+    profile = profile_engine(engine, [
+        np.random.default_rng(22).integers(0, cfg.vocab_size, 128).tolist()
+        for _ in range(8)], max_tokens, "serve_moe_profile")
+
+    # Routes: per layer, each wave's prefill [8, 128] (rows in admission
+    # order) and its 48 decode steps [8, 1] (rows = slots), against the
+    # teacher's [8, 176] per wave.
+    steps = 1 + math.ceil((max_tokens - 1) / K) * K
+    s_logits = router_logits(model, served)
+    t_logits = router_logits(model, taught)
+    checked, differ, first, first_margins, noise = 0, 0, 0, [], 0.0
+    max_gap = apart_gap = 0.0
+    for w, (_, reqs, toks, _, _) in enumerate(waves):
+        agree = torch.ones((len(reqs), prompt_len + max_tokens),
+                           dtype=torch.bool, device=dev)
+        for layer in range(cfg.num_layers):
+            calls = s_logits[layer][w * steps:(w + 1) * steps]
+            slots = torch.tensor([r.slot for r in reqs], device=dev)
+            dec = torch.cat(calls[1:], dim=1)[slots]  # [8, 48, E]
+            serve = torch.cat([calls[0], dec], dim=1)
+            teach = t_logits[layer][w]
+            top2 = teach.topk(2, dim=-1).values
+            margin = top2[..., 0] - top2[..., 1]
+            diff = serve.argmax(-1) != teach.argmax(-1)
+            differ += int(diff.sum())
+            # Router noise where every earlier layer routed alike, this
+            # layer's routed-apart positions included; past a position's
+            # first layer routed apart its inputs differ by a whole
+            # expert's output.
+            if agree.any():
+                noise = max(noise, (serve - teach).abs().amax(-1)[agree]
+                            .max().item())
+            new = diff & agree
+            first += int(new.sum())
+            first_margins += margin[new].tolist()
+            agree &= ~diff
+        ok_pos = agree[:, prompt_len - 1:prompt_len - 1 + max_tokens]
+        for b, row in enumerate(gaps[w]):
+            for i, gap in enumerate(row):
+                if ok_pos[b, i]:
+                    checked += 1
+                    max_gap = max(max_gap, gap)
+                else:
+                    apart_gap = max(apart_gap, gap)
+    k4 = n_waves * cfg.num_layers * K * math.ceil((max_tokens - 1) / K)
+    k1 = n_waves * cfg.num_layers
+    ok_tokens = all(len(t) == max_tokens for w in waves for t in w[2])
+    answers = n_waves * 8 * max_tokens
+    ok_routes = (noise <= MOE_ROUTER_TOL
+                 and checked >= MOE_TEACHER_SHARE * answers
+                 and apart_gap <= MOE_APART_GAP_TOL)
+    ok = (ok_tokens and finite and max_gap <= TEACHER_TOL and ok_routes
+          and launch_ok(launches, k4, k1))
+    check(ok, "MoE serving")
+    emit(serving_row(
+        "serve_moe", cfg, waves, setup_s, K, max_tokens, launches, k4, k1,
+        max_gap, peak / GB, ok, experts=cfg.num_experts,
+        capacity_factor=cfg.moe_capacity_factor, of_layers=32,
+        params=n_params, teacher_positions_checked=checked,
+        teacher_positions=answers, teacher_share_min=MOE_TEACHER_SHARE,
+        teacher_max_gap_routed_apart=apart_gap,
+        teacher_gap_routed_apart_tol=MOE_APART_GAP_TOL,
+        routes_differ=differ, positions_routed_apart=first,
+        positions_routed=n_waves * 8 * (prompt_len + max_tokens),
+        routed_apart_margins=sorted(first_margins)[-10:],
+        router_logit_max_diff=noise, router_logit_tol=MOE_ROUTER_TOL))
+    emit(profile)
+    del engine, model, served, taught, s_logits, t_logits
+    return {**launches, "forward_shape": shape}
+
+
+# ---------------------------------------------------------------------------
 def main():
     import argparse
 
@@ -1046,6 +1460,23 @@ def main():
     training = train_8b_phase(dev, wrappers)
     gc.collect()
     torch.cuda.empty_cache()
+    quant_check_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8 = serve_8b_int8_phase(dev, wrappers, serving["summary"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_check_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = serve_moe_phase(dev, wrappers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The int8 and MoE serving paths give K1 and K4 serve_8b's shapes (the
+    # same heads, batch, prompt and answer), so the main-path checks below
+    # cover them.
+    check(int8["forward_shape"] == moe["forward_shape"]
+          == serving["forward_shape"], "serving paths' shapes")
 
     # Every kernel at the shapes its main path gave it: K1 and K4 at the
     # serving path's teacher-forced forward and decode, K1, K2 and K3 at the
@@ -1079,7 +1510,8 @@ def main():
                 "library_ms": k23["library_ms"],
                 "pair_delta_ms": k23["pair_delta_ms"]}
 
-    by_path = {n: {"train_8b": training[n], "serve_8b": serving[n]}
+    by_path = {n: {"train_8b": training[n], "serve_8b": serving[n],
+                   "serve_8b_int8": int8[n], "serve_moe": moe[n]}
                for n in wrappers}
     emit({"kernels": [
         {"name": "flash_fwd", "route": "cuda",

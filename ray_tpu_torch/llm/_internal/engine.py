@@ -8,8 +8,10 @@ Same scheduler as the JAX engine:
 - prefix sharing of full prompt pages, with same-wave dependency ordering;
 - pipelined dispatch: window N+1 is enqueued from window N's DEVICE outputs
   before N's tokens reach the host;
-- batched multi-LoRA banks, a ``param_transform`` hook, and sampling
-  (greedy, temperature, top-k, top-p, logprobs).
+- batched multi-LoRA banks, a ``param_transform`` hook (int8 serving:
+  ``param_transform=dequantize_tree`` over a quantized state dict from
+  models/quant.py), and sampling (greedy, temperature, top-k, top-p,
+  logprobs).
 
 What differs, because this is PyTorch: the paged KV cache is updated in
 place (the JAX engine donated it through each jitted step); host control
@@ -37,7 +39,9 @@ from ray_tpu_torch.llm._internal.paged import (
     init_paged_cache,
     to_device,
 )
+from ray_tpu_torch.models.convert import is_qleaf
 from ray_tpu_torch.models.llama import load_params
+from ray_tpu_torch.models.quant import WeightsAtUse, tree_to
 from ray_tpu_torch.utils.device import resolve_device
 from ray_tpu_torch.utils.logging import get_logger
 
@@ -119,24 +123,34 @@ class LLMEngine:
 
     ``params`` is a state dict (arrays or tensors) loaded into ``model``, or
     None to use the model's own weights. With ``param_transform`` the engine
-    keeps ``params`` as given and runs every forward on
-    ``param_transform(params)`` (e.g. dequantization of stored weights).
-    Runs on ``device``: the card unless the caller names one.
+    keeps ``params`` as given on the device and runs every forward on
+    ``param_transform(params)``, and ``model``'s own parameters are not
+    read (build it on the meta device to hold none). When ``params`` holds
+    quantized leaves (models/quant.py), the transform (e.g.
+    ``dequantize_tree``) runs one module's sub-tree at a time where that
+    module runs (``WeightsAtUse``), so at most one decoder layer or
+    ``lm_head`` exists dequantized at a time; there it must map each leaf
+    to one of the same full name, or the step raises. Otherwise it runs on
+    the whole tree. Runs on ``device``: the card unless the caller names
+    one.
     """
 
     def __init__(self, model, params, cfg: EngineConfig,
                  param_transform: Optional[Callable] = None, device=None):
         self.device = resolve_device(device)
-        self.model = model.to(self.device)
         self.cfg = cfg
         self.param_transform = param_transform
+        self.params = None
+        self._weights: Optional[WeightsAtUse] = None
         if param_transform is not None:
-            self.params = {k: torch.as_tensor(v).to(self.device)
-                           for k, v in params.items()}
+            self.model = model
+            self.params = tree_to(params, self.device)
+            if any(is_qleaf(v) for v in self.params.values()):
+                self._weights = WeightsAtUse(self.params, param_transform)
         else:
+            self.model = model.to(self.device)
             if params is not None:
                 load_params(self.model, params)
-            self.params = None
         mcfg = model.cfg
         self.cache_cfg = PagedCacheConfig(
             num_pages=cfg.resolved_num_pages() + 1,
@@ -243,6 +257,8 @@ class LLMEngine:
     def _forward(self, *args, **kwargs):
         if self.param_transform is None:
             return self.model(*args, **kwargs)
+        if self._weights is not None:
+            return self.model(*args, weights=self._weights, **kwargs)
         return torch.func.functional_call(
             self.model, self.param_transform(self.params), args, kwargs)
 

@@ -1,84 +1,164 @@
 """Weights between the flax Llama (ray_tpu/models/llama.py) and the PyTorch
 port (ray_tpu_torch/models/llama.py). numpy only.
 
-flax layouts:
-- ``DenseGeneral`` q/k/v kernels are [hidden, heads, head_dim];
-- ``o_proj`` is [heads, head_dim, hidden];
-- ``Dense`` kernels are [in, out];
-- ``Embed`` is [vocab, hidden];
-- RMSNorm ``scale`` is [hidden].
+flax layouts, and the "kind" of each torch name (``layout_kind``):
+- ``DenseGeneral`` q/k/v kernels are [hidden, heads, head_dim] ("qkv");
+- ``o_proj`` is [heads, head_dim, hidden] ("o");
+- ``Dense`` kernels are [in, out] ("dense": the MLP, ``lm_head`` and the
+  MoE router);
+- ``Embed`` is [vocab, hidden], RMSNorm ``scale`` is [hidden], and the MoE
+  expert kernels ``mlp/{gate,up}_kernel`` [E, hidden, inter] and
+  ``mlp/down_kernel`` [E, inter, hidden] keep the flax layout ("same").
 PyTorch ``Linear`` weights are [out, in].
+
+A quantized leaf (models/quant.py) is ``{"__q__": int8, "s": scale}``. Its
+int8 array converts like the weight. Its flax scale has the shape (1, ..., 1,
+last) of the flax layout; the torch scale is that scale laid out the way
+the weight is (broadcast over the heads for q/k/v), so ``q * s`` gives the
+same elements in both layouts.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
 
-_MLP = ("gate_proj", "up_proj", "down_proj")
-_NORMS = ("input_layernorm", "post_attention_layernorm")
+Path = Tuple[str, ...]
 
 
-def _num_layers(flax_params) -> int:
-    n = 0
-    while f"layers_{n}" in flax_params:
-        n += 1
-    return n
+def is_qleaf(x: Any) -> bool:
+    return isinstance(x, dict) and "__q__" in x
 
 
-def convert_params(flax_params: Dict[str, Any]) -> Dict[str, np.ndarray]:
-    """Nested flax params (arrays as numpy) -> a flat PyTorch state dict of
-    numpy arrays."""
-    a = np.asarray
-    out = {"embed_tokens.weight": a(flax_params["embed_tokens"]["embedding"])}
-    for i in range(_num_layers(flax_params)):
-        layer = flax_params[f"layers_{i}"]
-        pre = f"layers.{i}"
-        attn = layer["self_attn"]
-        for name in ("q_proj", "k_proj", "v_proj"):
-            kern = a(attn[name]["kernel"])  # [hidden, heads, head_dim]
-            out[f"{pre}.self_attn.{name}.weight"] = kern.reshape(
-                kern.shape[0], -1).T
-        kern = a(attn["o_proj"]["kernel"])  # [heads, head_dim, hidden]
-        out[f"{pre}.self_attn.o_proj.weight"] = kern.reshape(
-            -1, kern.shape[-1]).T
-        for name in _MLP:
-            out[f"{pre}.mlp.{name}.weight"] = a(layer["mlp"][name]["kernel"]).T
-        for name in _NORMS:
-            out[f"{pre}.{name}.weight"] = a(layer[name]["scale"])
-    out["norm.weight"] = a(flax_params["norm"]["scale"])
-    out["lm_head.weight"] = a(flax_params["lm_head"]["kernel"]).T
-    return {k: np.ascontiguousarray(v) for k, v in out.items()}
+def flax_path(name: str) -> Path:
+    """The flax param path of a torch parameter name, e.g.
+    ``layers.3.self_attn.q_proj.weight`` -> ``("layers_3", "self_attn",
+    "q_proj", "kernel")``."""
+    parts = name.split(".")
+    head: Path = ()
+    if parts[0] == "layers":
+        head, parts = (f"layers_{parts[1]}",), parts[2:]
+    if parts[-1] != "weight":  # MoE expert kernels: mlp.gate_kernel
+        return head + tuple(parts)
+    mod = parts[:-1]
+    if mod == ["embed_tokens"]:
+        leaf = "embedding"
+    elif mod[-1].endswith("norm"):
+        leaf = "scale"
+    else:
+        leaf = "kernel"
+    return head + tuple(mod) + (leaf,)
 
 
-def unconvert_params(state_dict: Dict[str, Any], num_heads: int,
-                     num_kv_heads: int, head_dim: int) -> Dict[str, Any]:
-    """The inverse of ``convert_params``: a state dict (numpy arrays) ->
-    nested flax params."""
-    sd = {k: np.asarray(v) for k, v in state_dict.items()}
-    n_layers = 1 + max(int(k.split(".")[1]) for k in sd
-                       if k.startswith("layers."))
-    out: Dict[str, Any] = {
-        "embed_tokens": {"embedding": sd["embed_tokens.weight"]},
-        "norm": {"scale": sd["norm.weight"]},
-        "lm_head": {"kernel": sd["lm_head.weight"].T},
-    }
-    heads = {"q_proj": num_heads, "k_proj": num_kv_heads,
-             "v_proj": num_kv_heads}
-    for i in range(n_layers):
-        pre = f"layers.{i}"
-        attn = {}
-        for name, h in heads.items():
-            w = sd[f"{pre}.self_attn.{name}.weight"]  # [h*d, hidden]
-            attn[name] = {"kernel": w.T.reshape(w.shape[1], h, head_dim)}
-        w = sd[f"{pre}.self_attn.o_proj.weight"]  # [hidden, h*d]
-        attn["o_proj"] = {"kernel": w.T.reshape(num_heads, head_dim,
-                                                w.shape[0])}
-        layer = {"self_attn": attn,
-                 "mlp": {name: {"kernel": sd[f"{pre}.mlp.{name}.weight"].T}
-                         for name in _MLP}}
-        for name in _NORMS:
-            layer[name] = {"scale": sd[f"{pre}.{name}.weight"]}
-        out[f"layers_{i}"] = layer
+def torch_name(path: Path) -> str:
+    """The inverse of ``flax_path``."""
+    parts = list(path)
+    head = []
+    if parts[0].startswith("layers_"):
+        head, parts = ["layers", parts[0][len("layers_"):]], parts[1:]
+    if parts[-1] in ("kernel", "scale", "embedding"):
+        parts[-1] = "weight"
+    return ".".join(head + parts)
+
+
+def layout_kind(name: str) -> str:
+    """How the torch parameter ``name`` is laid out against its flax
+    kernel: "qkv", "o", "dense" (transposed) or "same"."""
+    if name.endswith(("q_proj.weight", "k_proj.weight", "v_proj.weight")):
+        return "qkv"
+    if name.endswith("o_proj.weight"):
+        return "o"
+    return "dense" if flax_path(name)[-1] == "kernel" else "same"
+
+
+def to_torch_layout(kind: str, x):
+    """flax layout -> torch layout (numpy arrays or torch tensors)."""
+    if kind == "qkv":
+        return x.reshape(x.shape[0], -1).T
+    if kind == "o":
+        return x.reshape(-1, x.shape[-1]).T
+    return x.T if kind == "dense" else x
+
+
+def to_flax_layout(kind: str, x, head_dim: int):
+    """torch layout -> flax layout (numpy arrays or torch tensors)."""
+    if kind == "qkv":
+        return x.T.reshape(x.shape[1], -1, head_dim)
+    if kind == "o":
+        return x.T.reshape(-1, head_dim, x.shape[0])
+    return x.T if kind == "dense" else x
+
+
+def scale_to_torch(kind: str, s, flax_shape):
+    """A flax scale (1, ..., 1, last) -> the torch scale of the weight:
+    [heads * head_dim, 1] (one scale a head_dim index, the same for every
+    head) for q/k/v, [out, 1] for o_proj and the Dense kernels."""
+    if kind == "qkv":
+        shape = (1, flax_shape[1], flax_shape[2])
+        s = (np.broadcast_to(s, shape) if isinstance(s, np.ndarray)
+             else s.expand(shape))
+    return to_torch_layout(kind, s)
+
+
+def scale_to_flax(kind: str, s, head_dim: int):
+    """The inverse of ``scale_to_torch`` (numpy). A q/k/v scale must be
+    the same for every head."""
+    if kind == "qkv":
+        per_head = s.reshape(-1, head_dim)
+        if not (per_head == per_head[:1]).all():
+            raise ValueError("q/k/v scale differs between heads")
+        return per_head[:1].reshape(1, 1, head_dim)
+    if kind == "o":
+        return s.reshape(1, 1, -1)
+    return s.T if kind == "dense" else s
+
+
+def _leaves(tree, prefix: Path = ()) -> Iterator[Tuple[Path, Any]]:
+    for k, v in tree.items():
+        if isinstance(v, dict) and not is_qleaf(v):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def convert_params(flax_params: Dict[str, Any]) -> Dict[str, Any]:
+    """Nested flax params (arrays as numpy), plain or quantized, dense or
+    MoE -> a flat PyTorch state dict of numpy arrays (quantized leaves as
+    ``{"__q__", "s"}`` dicts of them)."""
+    out: Dict[str, Any] = {}
+    for path, v in _leaves(flax_params):
+        name = torch_name(path)
+        kind = layout_kind(name)
+        if is_qleaf(v):
+            q = np.asarray(v["__q__"])
+            out[name] = {
+                "__q__": np.ascontiguousarray(to_torch_layout(kind, q)),
+                "s": np.ascontiguousarray(
+                    scale_to_torch(kind, np.asarray(v["s"]), q.shape))}
+        else:
+            out[name] = np.ascontiguousarray(
+                to_torch_layout(kind, np.asarray(v)))
+    return out
+
+
+def unconvert_params(state_dict: Dict[str, Any], head_dim: int
+                     ) -> Dict[str, Any]:
+    """The inverse of ``convert_params``: a state dict (numpy arrays,
+    quantized leaves as dicts of them) -> nested flax params. The head
+    counts follow from the weights' shapes and ``head_dim``."""
+    out: Dict[str, Any] = {}
+    for name, v in state_dict.items():
+        kind = layout_kind(name)
+        if is_qleaf(v):
+            leaf = {"__q__": to_flax_layout(kind, np.asarray(v["__q__"]),
+                                            head_dim),
+                    "s": scale_to_flax(kind, np.asarray(v["s"]), head_dim)}
+        else:
+            leaf = to_flax_layout(kind, np.asarray(v), head_dim)
+        *parents, last = flax_path(name)
+        node = out
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = leaf
     return out

@@ -17,13 +17,18 @@ drops every update smaller than one bf16 ulp.
 With ``cfg.remat``, grad enabled and no KV cache, each decoder layer runs
 under ``torch.utils.checkpoint`` (flax's ``nn.remat``): its activations are
 recomputed in the backward, so K1 runs twice per layer and step.
+
+``cfg.num_experts > 0`` swaps each layer's SwiGLU MLP for the switch-routed
+``MoEMlp`` of models/moe.py. ``forward(..., weights=)`` takes each module's
+weights from a ``WeightsAtUse`` (models/quant.py) at its point of use instead
+of from the module: the serving path of an int8 state dict.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -57,7 +62,8 @@ class LlamaConfig:
     attention_impl: str = "flash"
     # Activation checkpointing for training; inference ignores it.
     remat: bool = True
-    # >0 selects the MoE Mlp, which is not ported yet.
+    # >0 replaces the dense SwiGLU Mlp with a switch-routed MoE of this many
+    # experts (models/moe.py).
     num_experts: int = 0
     moe_capacity_factor: float = 1.25
 
@@ -253,14 +259,19 @@ class Mlp(nn.Module):
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None, param_dtype=None):
         super().__init__()
-        if cfg.num_experts > 0:
-            raise NotImplementedError("MoE Mlp is not ported yet")
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
                                        cfg.dtype, device)
         self.self_attn = Attention(cfg, device, param_dtype)
         self.post_attention_layernorm = RMSNorm(
             cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype, device)
-        self.mlp = Mlp(cfg, device, param_dtype)
+        if cfg.num_experts > 0:
+            from ray_tpu_torch.models.moe import MoEMlp
+
+            self.mlp = MoEMlp(cfg.hidden_size, cfg.intermediate_size,
+                              cfg.num_experts, cfg.moe_capacity_factor,
+                              cfg.dtype, device, param_dtype)
+        else:
+            self.mlp = Mlp(cfg, device, param_dtype)
 
     def forward(self, x, positions, kv_cache=None, cache_index=None,
                 paged=None, lora=None, lora_idx=None):
@@ -270,6 +281,14 @@ class DecoderLayer(nn.Module):
         x = x + attn_out
         x = x + self.mlp(self.post_attention_layernorm(x))
         return x, new_cache
+
+
+def _run(module: nn.Module, name: str, weights: Optional[Callable], *args):
+    """``module(*args)``, on ``weights(name)`` when given (dropped on
+    return) instead of the module's own parameters."""
+    if weights is None:
+        return module(*args)
+    return torch.func.functional_call(module, weights(name), args)
 
 
 class LlamaModel(nn.Module):
@@ -295,21 +314,29 @@ class LlamaModel(nn.Module):
 
     def forward(self, input_ids, positions=None, kv_caches=None,
                 cache_index=None, paged_kv=None, page_table=None,
-                write_mask=None, seq_lens=None, lora=None, lora_idx=None):
+                write_mask=None, seq_lens=None, lora=None, lora_idx=None,
+                weights=None):
         """lora: {"layers_<i>": {proj: {"a": [K,r,Din], "b": [K,Dout,r],
         "scale": s}}} adapter BANKS; lora_idx [B] picks each sequence's
         adapter, slot 0 = none. With ``paged_kv``, ``write_mask`` [B,S]
         enables each lane's KV write (a mask built on the host costs no
-        device sync)."""
+        device sync). ``weights``: a WeightsAtUse (models/quant.py) that
+        gives each module its weights where it runs, the embedding its
+        gathered rows only; the model's own parameters are then not read
+        (they may live on the meta device)."""
         cfg = self.cfg
-        device = self.embed_tokens.weight.device
+        device = input_ids.device
         if positions is None:
             start = cache_index if (kv_caches is not None
                                     and cache_index is not None) else 0
             positions = start + torch.arange(input_ids.shape[1],
                                              device=device)
         # Gather rows, then cast: the same values as casting the table first.
-        x = _cast(self.embed_tokens(input_ids), cfg.dtype)
+        if weights is None:
+            x = self.embed_tokens(input_ids)
+        else:
+            x = weights("embed_tokens", rows=input_ids)["weight"]
+        x = _cast(x, cfg.dtype)
         lanes = None
         if paged_kv is not None:
             from ray_tpu_torch.llm._internal.paged import write_lanes
@@ -325,14 +352,15 @@ class LlamaModel(nn.Module):
                 paged = {"kv_pages": paged_kv[i], "page_table": page_table,
                          "write_lanes": lanes, "seq_lens": seq_lens}
             layer_lora = (lora or {}).get(f"layers_{i}")
-            args = (x, positions, cache, cache_index, paged, layer_lora,
-                    lora_idx)
+            args = (layer, f"layers.{i}", weights, x, positions, cache,
+                    cache_index, paged, layer_lora, lora_idx)
             if remat:
-                x, new_cache = checkpoint(layer, *args, use_reentrant=False)
+                x, new_cache = checkpoint(_run, *args, use_reentrant=False)
             else:
-                x, new_cache = layer(*args)
+                x, new_cache = _run(*args)
             new_caches.append(new_cache)
-        logits = self.lm_head(self.norm(x))
+        x = _run(self.norm, "norm", weights, x)
+        logits = _run(self.lm_head, "lm_head", weights, x)
         if kv_caches is not None or paged_kv is not None:
             return logits, new_caches
         return logits

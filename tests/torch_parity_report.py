@@ -23,11 +23,15 @@ import torch  # noqa: E402
 from ray_tpu.llm._internal import engine as jeng  # noqa: E402
 from ray_tpu.llm._internal import paged as jpaged  # noqa: E402
 from ray_tpu.models import llama as jllama  # noqa: E402
+from ray_tpu.models import moe as jmoe  # noqa: E402
+from ray_tpu.models import quant as jquant  # noqa: E402
 from ray_tpu.ops import attention as jattn  # noqa: E402
 from ray_tpu.train import step as jstep  # noqa: E402
 from ray_tpu_torch.llm._internal import engine as teng  # noqa: E402
 from ray_tpu_torch.llm._internal import paged as tpaged  # noqa: E402
 from ray_tpu_torch.models import llama as tllama  # noqa: E402
+from ray_tpu_torch.models import moe as tmoe  # noqa: E402
+from ray_tpu_torch.models import quant as tquant  # noqa: E402
 from ray_tpu_torch.models.convert import convert_params  # noqa: E402
 from ray_tpu_torch.ops import attention as tattn  # noqa: E402
 from ray_tpu_torch.train import step as tstep  # noqa: E402
@@ -36,6 +40,122 @@ from ray_tpu_torch.train import step as tstep  # noqa: E402
 def err(a, b):
     return float(np.abs(np.asarray(a, np.float64)
                         - np.asarray(b, np.float64)).max())
+
+
+def f32(a):
+    """numpy or torch (bf16 included) -> float64 numpy."""
+    if torch.is_tensor(a):
+        return a.double().numpy()
+    return np.asarray(a).astype(np.float64)
+
+
+def tree_err(port, ref):
+    """Max abs error over a port state dict and a converted reference one
+    (quantized leaves compared field by field)."""
+    e = 0.0
+    for name, r in ref.items():
+        pairs = ([(port[name][f], r[f]) for f in ("__q__", "s")]
+                 if isinstance(r, dict) else [(port[name], r)])
+        e = max([e] + [float(np.abs(f32(a) - f32(b)).max())
+                       for a, b in pairs])
+    return e
+
+
+def greedy_differ(je, te, requests, jmod=jeng, tmod=teng):
+    """Greedy tokens that differ between a JAX and a port engine."""
+    outs = []
+    for eng, mod in ((je, jmod), (te, tmod)):
+        for rid, p in requests.items():
+            eng.add_request(mod.Request(rid, p, max_tokens=6))
+        got = {}
+        while eng.has_work():
+            for so in eng.step():
+                got.setdefault(so.request_id, []).append(so.token)
+        outs.append(got)
+    return float(sum(a != b for r in requests
+                     for a, b in zip(outs[0][r], outs[1][r])))
+
+
+def quant_moe_rows(rows, jparams, sd):
+    """models/quant.py and models/moe.py (tests/test_torch_quant.py and
+    tests/test_torch_moe.py's inputs)."""
+    t = torch.from_numpy
+    tcfg = tllama.LlamaConfig.tiny(vocab_size=128)
+    jq = jquant.quantize_tree(jparams, min_size=64)
+    tq = tquant.quantize_tree(sd, tcfg, min_size=64, device="cpu")
+    conv = lambda tree: convert_params(jax.tree.map(np.asarray, tree))
+    rows.append(("models/quant.py `quantize_tree` (int8 and scales)",
+                 "`quantize_tree`", tree_err(tq, conv(jq)), 0.0))
+    for dt in ("float32", "bfloat16"):
+        rows.append((f"models/quant.py `dequantize_tree` ({dt})",
+                     "`dequantize_tree`",
+                     tree_err(tquant.dequantize_tree(tq, getattr(torch, dt)),
+                              conv(jquant.dequantize_tree(
+                                  jq, getattr(jnp, dt)))), 0.0))
+    jcfg12 = dataclasses.replace(jllama.LlamaConfig.tiny(vocab_size=128),
+                                 num_layers=12)
+    shape = jax.eval_shape(lambda: jllama.LlamaModel(jcfg12).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"])
+    rows.append(("models/quant.py `random_quantized_like` (12 layers)",
+                 "`random_quantized_like`",
+                 tree_err(tquant.random_quantized_like(
+                     dataclasses.replace(tcfg, num_layers=12),
+                     device="cpu"),
+                          conv(jquant.random_quantized_like(shape))), 0.0))
+    kw = dict(max_seqs=2, page_size=4, max_pages_per_seq=16, decode_steps=1)
+    requests = {"a": [5, 17, 42, 7], "b": [1, 2, 3],
+                "c": list(range(9, 30))}
+    je = jeng.LLMEngine(jllama.LlamaModel(jllama.LlamaConfig.tiny(
+        vocab_size=128)), jq, jeng.EngineConfig(**kw),
+        param_transform=jquant.dequantize_tree)
+    te = teng.LLMEngine(tllama.LlamaModel(tcfg, device="meta"), tq,
+                        teng.EngineConfig(**kw),
+                        param_transform=tquant.dequantize_tree, device="cpu")
+    rows.append(("llm/_internal/engine.py int8 greedy tokens that differ "
+                 "(3 requests × 6)", "`LLMEngine` + `dequantize_tree`",
+                 greedy_differ(je, te, requests), 0.0))
+
+    x = np.random.default_rng(0).standard_normal((2, 32, 32)).astype(
+        np.float32)
+    for cf in (4.0, 0.25):
+        jl = jmoe.MoEMlp(32, 64, 4, capacity_factor=cf, dtype=jnp.float32)
+        p = jl.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"]
+        npp = jax.tree.map(np.asarray, p)
+        tl = tmoe.MoEMlp(32, 64, 4, capacity_factor=cf, dtype=torch.float32,
+                         device="cpu")
+        tllama.load_params(tl, {"router.weight": npp["router"]["kernel"].T,
+                                **{k: npp[k] for k in ("gate_kernel",
+                                                       "up_kernel",
+                                                       "down_kernel")}})
+        with torch.no_grad():
+            got = tl(t(x))
+        rows.append((f"models/moe.py `MoEMlp` (capacity factor {cf:g}"
+                     f"{', drops' if cf < 1 else ''})", "`MoEMlp`",
+                     err(got, jl.apply({"params": p}, jnp.asarray(x))),
+                     2e-5))
+    rows.append(("models/moe.py `moe_reference`", "`moe_reference`",
+                 err(tmoe.moe_reference(t(x), npp, 4),
+                     jmoe.moe_reference(jnp.asarray(x), p, 4)), 2e-5))
+    jcfg = dataclasses.replace(jllama.LlamaConfig.tiny(vocab_size=128),
+                               num_experts=4)
+    mcfg = dataclasses.replace(tcfg, num_experts=4)
+    jm = jllama.LlamaModel(jcfg)
+    mp = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))[
+        "params"]
+    tm = tllama.LlamaModel(mcfg, device="cpu")
+    tllama.load_params(tm, conv(mp))
+    ids = np.random.default_rng(0).integers(0, 128, (2, 24), dtype=np.int32)
+    with torch.no_grad():
+        got = tm(t(ids))
+    rows.append(("models/llama.py MoE logits (4 experts)",
+                 "`LlamaModel.apply`",
+                 err(got, jm.apply({"params": mp}, jnp.asarray(ids))), 1e-4))
+    je = jeng.LLMEngine(jm, mp, jeng.EngineConfig(**kw))
+    te = teng.LLMEngine(tm, conv(mp), teng.EngineConfig(**kw), device="cpu")
+    rows.append(("llm/_internal/engine.py MoE greedy tokens that differ "
+                 "(2 requests × 6, prefill drops)", "`LLMEngine`",
+                 greedy_differ(je, te, {"a": list(range(40, 66)),
+                                        "b": [5, 17, 42, 7]}), 0.0))
 
 
 def main():
@@ -179,6 +299,7 @@ def main():
                  for a, b in zip(outs[0][r], outs[1][r]))
     rows.append(("llm/_internal/engine.py greedy tokens (4 requests × 6)",
                  "`LLMEngine`", float(differ), 0.0))
+    quant_moe_rows(rows, jparams, sd)
 
     print("| Port module | JAX counterpart | max abs error | tolerance |")
     print("|---|---|---|---|")
