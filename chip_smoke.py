@@ -16,8 +16,13 @@ by module against the whole tree dequantized (same bits), and the
 reference's int8 8B serving config (all 32 layers, no bf16 tree resident);
 and a switch-routed MoE (models/moe.py): one MoEMlp at 8B widths against
 its f32 oracle, and a 4-layer MoE Llama at 8B widths served like the rest.
-Each phase prints one JSON line; the line before the last repeats the
-card's name and power limit from nvidia-smi, and the last line is
+Then the text surface (llm/_internal/openai.py, batch.py): OpenAIServer at
+Llama-3-8B width answers waves of completions and chat requests, unary and
+streamed, each response held to the ids the server generated and to a
+teacher-forced forward; and the batch engine stage runs a ragged block of 8
+rows at the same width. Each phase prints one JSON line; the line before
+the last repeats the card's name and power limit from nvidia-smi, and the
+last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -642,10 +647,9 @@ def serve_8b_phase(dev, wrappers):
         torch.cuda.reset_peak_memory_stats()
         waves = [wave() for _ in range(n_waves)]
         k4_serving = wrappers["paged_decode"].launches
-        gaps, finite, shape = teacher_gaps(
-            srv.model, [(prompts, None, [r["tokens"] for r in res], None,
-                         None) for prompts, res, _ in waves], prompt_len,
-            dev)
+        gaps, _, finite, shape = teacher_gaps(
+            srv.model, [list(zip(prompts, [r["tokens"] for r in res]))
+                        for prompts, res, _ in waves], dev)
         gaps = [g for w in gaps for r in w for g in r]
         torch.cuda.synchronize()
         launches = read_counts(wrappers)
@@ -995,23 +999,33 @@ def engine_waves(engine, vocab, n_waves, max_tokens, seed, n_req=8,
     return out
 
 
-def teacher_gaps(forward, waves, prompt_len, dev):
-    """Teacher-forced cacheless forward (K1) over prompt + answer of every
-    request of each wave: for each generated token, how far its logit lies
-    below its row's maximum. Returns (gaps [wave][req][token], all logits
-    finite, the forward's [B, S])."""
-    gaps, finite = [], True
-    for prompts, _, toks, _, _ in waves:
-        ids = torch.tensor([p + t for p, t in zip(prompts, toks)],
-                           device=dev)
+def teacher_gaps(forward, waves, dev):
+    """Teacher-forced cacheless forward (K1), one per wave, of that wave's
+    rows [(prompt, answer)] in one batch, right-padded with id 0 to the
+    longest prompt + answer (causal attention: no position sees the padding
+    after it; equal rows need none). For each answer token: how far its
+    logit lies below its row's maximum, and its log-softmax. Returns (gaps
+    [wave][row][token], logprobs [wave][row][token], all logits finite, the
+    last forward's [B, S])."""
+    gaps, lps, finite = [], [], True
+    for rows in waves:
+        S = max(len(p) + len(a) for p, a in rows)
+        ids = torch.zeros((len(rows), S), dtype=torch.long, device=dev)
+        for i, (p, a) in enumerate(rows):
+            ids[i, :len(p) + len(a)] = torch.tensor(list(p) + list(a),
+                                                    device=dev)
         with torch.no_grad():
             logits = forward(ids).float()
         finite = finite and bool(torch.isfinite(logits).all())
-        rows = logits[:, prompt_len - 1:prompt_len - 1 + len(toks[0])]
-        chosen = rows.gather(-1, torch.tensor(toks, device=dev)[..., None])
-        gaps.append((rows.max(-1).values - chosen[..., 0]).tolist())
-        del logits, rows
-    return gaps, finite, list(ids.shape)
+        gaps.append([])
+        lps.append([])
+        for i, (p, a) in enumerate(rows):
+            r = logits[i, len(p) - 1:len(p) - 1 + len(a)]
+            chosen = r.gather(-1, torch.tensor(a, device=dev)[:, None])[:, 0]
+            gaps[-1].append((r.max(-1).values - chosen).tolist())
+            lps[-1].append((chosen - torch.logsumexp(r, -1)).tolist())
+        del logits
+    return gaps, lps, finite, list(ids.shape)
 
 
 def serving_row(phase, cfg, waves, setup_s, K, max_tokens, launches,
@@ -1129,8 +1143,9 @@ def serve_8b_int8_phase(dev, wrappers, serve_8b):
     waves = engine_waves(engine, cfg.vocab_size, n_waves, max_tokens,
                          seed=11)
     at_use = WeightsAtUse(engine.params, dequantize_tree)
-    gaps, finite, shape = teacher_gaps(
-        lambda ids: model(ids, weights=at_use), waves, 128, dev)
+    gaps, _, finite, shape = teacher_gaps(
+        lambda ids: model(ids, weights=at_use),
+        [list(zip(p, t)) for p, _, t, _, _ in waves], dev)
     torch.cuda.synchronize()
     launches = read_counts(wrappers)
     peak = torch.cuda.max_memory_allocated()
@@ -1270,7 +1285,8 @@ def serve_moe_phase(dev, wrappers):
     waves = engine_waves(engine, cfg.vocab_size, n_waves, max_tokens,
                          seed=21)
     served = log.take()
-    gaps, finite, shape = teacher_gaps(model, waves, prompt_len, dev)
+    gaps, _, finite, shape = teacher_gaps(
+        model, [list(zip(p, t)) for p, _, t, _, _ in waves], dev)
     taught = log.take()
     log.close()
     torch.cuda.synchronize()
@@ -1345,6 +1361,479 @@ def serve_moe_phase(dev, wrappers):
     emit(profile)
     del engine, model, served, taught, s_logits, t_logits
     return {**launches, "forward_shape": shape}
+
+
+# ---------------------------------------------------------------------------
+# The text surface (llm/_internal/openai.py, batch.py, tokenizer.py).
+# A served logprob against the teacher-forced forward's log-softmax at the
+# same position: a logprob is a logit minus the row's logsumexp, and each
+# moves by at most the largest per-logit difference e between the two
+# paths. TEACHER_TOL bounds a chosen token's teacher gap, which is at most
+# 2e when the served path picked its own maximum, so it allows e up to
+# TEACHER_TOL / 2 and a logprob difference up to 2e = TEACHER_TOL.
+OPENAI_LP_TOL = TEACHER_TOL
+SSE_HEADER = {"__http__": {"content_type": "text/event-stream"}}
+
+
+class GenerateLog:
+    """Wraps an LLMServer's ``generate`` on the instance (instrumentation
+    of this script only): each call's prompt, token ids, logprob items and
+    ttft_s, under the key its thread set in ``local.key``. Closing the
+    wrapper closes the server's generator, as closing that one would."""
+
+    def __init__(self, srv):
+        self.calls, self.local = {}, threading.local()
+        inner = srv.generate
+
+        def generate(prompt_ids, **kwargs):
+            rec = {"prompt": list(prompt_ids), "tokens": [], "logprobs": [],
+                   "top": [], "ttft_s": None}
+            self.calls[self.local.key] = rec
+            with contextlib.closing(inner(prompt_ids, **kwargs)) as gen:
+                for item in gen:
+                    rec["tokens"].append(item["token"])
+                    if "logprob" in item:
+                        rec["logprobs"].append(item["logprob"])
+                        rec["top"].append(item["top_logprobs"])
+                    if "ttft_s" in item:
+                        rec["ttft_s"] = item["ttft_s"]
+                    yield item
+
+        srv.generate = generate
+
+
+def emitted_text(tok, ids):
+    """The text incremental decoding emits for ``ids``: the decode of the
+    longest prefix whose text does not end in U+FFFD (a partial UTF-8
+    character is held back). It is tok.decode(ids) unless that ends in a
+    partial character."""
+    for n in range(len(ids), -1, -1):
+        text = tok.decode(ids[:n])
+        if not text.endswith("�"):
+            return text
+    return ""
+
+
+def full_vocab_tokenizer(vocab_size):
+    """A ByteBPETokenizer of ``vocab_size`` ids (Llama-3's 128,256: 256
+    bytes, 127,994 merges, 6 specials) whose every non-special id decodes to
+    printable ASCII: merges of two printable bytes, then of such a pair and
+    a third."""
+    import itertools
+
+    from ray_tpu_torch.llm import ByteBPETokenizer
+    from ray_tpu_torch.llm._internal.tokenizer import SPECIAL_TOKENS
+
+    sym = [chr(c) for c in range(0x21, 0x7f)]  # their own byte symbols
+    pairs = [(a, b) for a in sym for b in sym]
+    triples = ((a + b, c) for a, b in pairs for c in sym)
+    n = vocab_size - 256 - len(SPECIAL_TOKENS)
+    return ByteBPETokenizer(list(itertools.islice(
+        itertools.chain(pairs, triples), n)))
+
+
+def chat_content(rng, tok, n_ids):
+    """A user message of seeded lowercase words that the chat template makes
+    exactly ``n_ids`` ids under ``tok``: words are drawn while the template
+    is 5 or more ids short, then letters are added to the last word (a
+    letter mostly adds one id or none); a draw that overshoots starts
+    again."""
+    from ray_tpu_torch.llm import apply_chat_template
+
+    letters = list("abcdefghijklmnopqrstuvwxyz")
+    for _ in range(100):
+        words, n = [], 0
+        while n < n_ids:
+            if n < n_ids - 4:
+                words.append("".join(rng.choice(letters, rng.integers(2, 9))))
+            else:
+                words[-1] += rng.choice(letters)
+            n = len(apply_chat_template(
+                tok, [{"role": "user", "content": " ".join(words)}]))
+        if n == n_ids:
+            return " ".join(words)
+    raise RuntimeError(f"no chat message of {n_ids} ids")
+
+
+def openai_wave(rng, vocab, tok, max_tokens):
+    """8 requests: 4 completions of 128 pre-tokenized ids from the whole
+    vocab (two streamed, one with logprobs 2) and 4 chats of one user
+    message that the chat template makes exactly 128 ids (two streamed,
+    one with top_logprobs 2)."""
+    wave = []
+    for chat in (False, True):
+        for i in range(4):
+            if chat:
+                body = {"messages": [{"role": "user", "content":
+                                      chat_content(rng, tok, 128)}]}
+            else:
+                body = {"prompt": rng.integers(0, vocab, 128).tolist()}
+            body["max_tokens"] = max_tokens
+            if i < 2:
+                body["stream"] = True
+            elif i == 2:
+                body.update({"logprobs": True, "top_logprobs": 2} if chat
+                            else {"logprobs": 2})
+            wave.append(("/v1/chat/completions" if chat
+                         else "/v1/completions", body))
+    return wave
+
+
+def openai_checks(suffix, body, out, rec, tok, model_id):
+    """What the wire must hold for one request, given the ids the server's
+    generate gave it. Returns the names of the checks that failed."""
+    chat = "chat" in suffix
+    ids = rec["tokens"]
+    want_text = emitted_text(tok, ids)
+    bad = []
+    if body.get("stream"):
+        if out[0] != SSE_HEADER or out[-1] != "data: [DONE]\n\n":
+            bad.append("stream framing")
+        chunks = []
+        for line in out[1:-1]:
+            if not (line.startswith("data: ") and line.endswith("\n\n")):
+                bad.append("sse line")
+                continue
+            chunks.append(json.loads(line[len("data: "):]))
+        kind = "chat.completion.chunk" if chat else "text_completion"
+        if any(c["object"] != kind or c["model"] != model_id
+               or c["id"] != chunks[0]["id"] for c in chunks):
+            bad.append("chunk object")
+        last = chunks[-1]["choices"][0]
+        if (last["finish_reason"] != "stop"
+                or last.get("delta", {}) != {} or last.get("text", "") != ""
+                or any(c["choices"][0]["finish_reason"] is not None
+                       for c in chunks[:-1])):
+            bad.append("finish chunk")
+        if chat:
+            if chunks[0]["choices"][0]["delta"] != {"role": "assistant",
+                                                    "content": ""}:
+                bad.append("role chunk")
+            text = "".join(c["choices"][0]["delta"].get("content", "")
+                           for c in chunks[1:-1])
+        else:
+            text = "".join(c["choices"][0]["text"] for c in chunks[:-1])
+        if text != want_text:
+            bad.append("stream text")
+        return bad
+    choice = out["choices"][0]
+    if (out["object"] != ("chat.completion" if chat else "text_completion")
+            or out["model"] != model_id):
+        bad.append("object")
+    if out["usage"] != {"prompt_tokens": 128, "completion_tokens": len(ids),
+                        "total_tokens": 128 + len(ids)}:
+        bad.append("usage")
+    if choice["finish_reason"] != ("stop" if ids[-1] == tok.eot_id
+                                   else "length"):
+        bad.append("finish_reason")
+    text = choice["message"]["content"] if chat else choice["text"]
+    if text != want_text:
+        bad.append("text")
+    if body.get("logprobs"):
+        lp = choice["logprobs"]
+        if chat:
+            got = [(e["token"], e["logprob"],
+                    [(t["token"], t["logprob"]) for t in e["top_logprobs"]])
+                   for e in lp["content"]]
+            want = [(tok.decode([t]), v, [(tok.decode([i]), x)
+                                          for i, x in top])
+                    for t, v, top in zip(ids, rec["logprobs"], rec["top"])]
+        else:
+            got = (lp["tokens"], lp["token_logprobs"], lp["top_logprobs"])
+            want = ([tok.decode([t]) for t in ids], rec["logprobs"],
+                    [{tok.decode([i]): x for i, x in top}
+                     for top in rec["top"]])
+        if got != want or len(rec["logprobs"]) != len(ids):
+            bad.append("logprobs block")
+    return bad
+
+
+def greedy_top_ok(rec):
+    """Greedy: each token's logprob equals the first of its top_logprobs,
+    whose token is its own, and equal values come lowest id first, as the
+    reference's jax.lax.top_k orders them (bf16 logits tie often). Returns
+    (ok, the tokens whose first two alternatives tie)."""
+    ok, ties = True, 0
+    for t, v, top in zip(rec["tokens"], rec["logprobs"], rec["top"]):
+        ties += len(top) > 1 and top[0][1] == top[1][1]
+        ok = ok and top[0] == (t, v) and all(
+            a[1] > b[1] or (a[1] == b[1] and a[0] < b[0])
+            for a, b in zip(top, top[1:]))
+    return ok, ties
+
+
+def serve_openai_phase(dev, wrappers, serve_8b):
+    """OpenAIServer at Llama-3-8B width (32 layers, bf16, serve_8b's
+    engine) with a tokenizer of the model's 128,256 ids
+    (``full_vocab_tokenizer``, saved and passed as ``tokenizer_path``), so
+    that every id the random model emits is text: one warm wave, then two
+    measured waves of 8 greedy requests (``openai_wave``) of 128 prompt ids
+    and 48 new tokens, each admitted whole. Every response is held to the
+    ids the server generated for it (``openai_checks``), every answer to a
+    teacher-forced forward (K1), every logprob to the teacher's
+    log-softmax. Then a 400 (top_p 0), a stream closed after 5 deltas, and
+    the device time of the engine's logprob ordering."""
+    import tempfile
+
+    from ray_tpu_torch.llm import OpenAIServer
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    n_waves, max_tokens, K = 2, 48, 8
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        tok_path = os.path.join(tmp, "tokenizer.json")
+        full_vocab_tokenizer(LlamaConfig.llama3_8b().vocab_size).save(
+            tok_path)
+        t0 = time.perf_counter()
+        oai = OpenAIServer({
+            "model": "llama3-8b", "seed": 0, "tokenizer_path": tok_path,
+            "engine_config": {"max_seqs": 8, "page_size": 64,
+                              "max_pages_per_seq": 8, "decode_steps": K}},
+            device=dev)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+    srv, tok, model_id = oai.server, oai.tokenizer, oai.model_id
+    cfg = srv.model.cfg
+    log = GenerateLog(srv)
+    rng = np.random.default_rng(30)
+
+    def wave(w):
+        reqs = openai_wave(rng, cfg.vocab_size, tok, max_tokens)
+        outs = [None] * len(reqs)
+
+        def go(i):
+            log.local.key = (w, i)
+            out = oai({"suffix": reqs[i][0], "body": reqs[i][1]})
+            outs[i] = out if isinstance(out, dict) else list(out)
+
+        threads = [threading.Thread(target=go, args=(i,))
+                   for i in range(len(reqs))]
+        t = time.perf_counter()
+        with srv.paused():
+            for th in threads:
+                th.start()
+            while srv.stats()["pending"] < len(reqs):
+                if time.perf_counter() - t > 60:
+                    raise RuntimeError("requests did not reach the server")
+                time.sleep(0.001)
+        for th in threads:
+            th.join(600)
+        if any(th.is_alive() for th in threads):
+            raise RuntimeError("an OpenAI request did not finish")
+        wall = time.perf_counter() - t
+        return reqs, outs, [log.calls[(w, i)] for i in range(len(reqs))], wall
+
+    try:
+        wave("warm")
+        zero_counts(wrappers)
+        waves = [wave(w) for w in range(n_waves)]
+        gaps, lps, finite, shape = teacher_gaps(
+            srv.model, [[(r["prompt"], r["tokens"]) for r in recs]
+                        for _, _, recs, _ in waves], dev)
+        max_gap = max(g for w in gaps for row in w for g in row)
+        bad, windows, lp_err, ties = {}, [], 0.0, 0
+        for w, (reqs, outs, recs, _) in enumerate(waves):
+            for i, ((suffix, body), out, rec) in enumerate(
+                    zip(reqs, outs, recs)):
+                failed = openai_checks(suffix, body, out, rec, tok, model_id)
+                if body.get("logprobs"):
+                    ok, n_ties = greedy_top_ok(rec)
+                    ties += n_ties
+                    if not ok:
+                        failed.append("greedy top_logprobs")
+                if failed:
+                    bad[f"wave{w}_req{i}"] = failed
+            # One admission a wave: the prefill gives each request its first
+            # token, then windows of K steps until the longest answer ends.
+            windows.append(math.ceil(
+                (max(len(r["tokens"]) for r in recs) - 1) / K))
+            for (_, body), rec, lp in zip(reqs, recs, lps[w]):
+                if body.get("logprobs"):
+                    err = max(abs(a - b) for a, b in zip(rec["logprobs"], lp))
+                    lp_err = max(lp_err, err)
+        torch.cuda.synchronize()
+        launches = read_counts(wrappers)
+        peak_gb = torch.cuda.max_memory_allocated() / GB
+        lp_ok = lp_err <= OPENAI_LP_TOL
+
+        # A bad request: the documented 400 body, and nothing left running.
+        err_body = oai({"suffix": "/v1/completions",
+                        "body": {"prompt": [1, 2, 3], "top_p": 0}})
+        st = srv.stats()
+        ok_error = (err_body["__http__"] == {"status": 400}
+                    and err_body["body"]["error"]["type"]
+                    == "invalid_request_error"
+                    and (st["running"], st["waiting"], st["pending"])
+                    == (0, 0, 0))
+
+        # A stream closed after 5 deltas must abort the engine request: the
+        # slot is released by the engine step that processes the abort, at
+        # most the second step to start after the close (the first may have
+        # drained the abort queue just before it).
+        steps = {"n": 0}
+        engine_step = srv.engine.step
+
+        def counted_step():
+            steps["n"] += 1
+            return engine_step()
+
+        srv.engine.step = counted_step
+        log.local.key = "early_close"
+        stream = oai({"suffix": "/v1/completions", "body": {
+            "prompt": rng.integers(0, cfg.vocab_size, 128).tolist(),
+            "max_tokens": max_tokens, "stream": True}})
+        items = [next(stream) for _ in range(6)]  # the header, 5 deltas
+        stream.close()
+        t_close, steps_at_close = time.perf_counter(), steps["n"]
+        while True:
+            st = srv.stats()
+            if (st["running"], st["waiting"], st["pending"]) == (0, 0, 0):
+                break
+            if time.perf_counter() - t_close > 30:
+                break
+            time.sleep(0.001)
+        close_s = time.perf_counter() - t_close
+        close_steps = steps["n"] - steps_at_close
+        srv.engine.step = engine_step
+        early = log.calls["early_close"]
+        ok_close = (st["running"] == 0 and st["waiting"] == 0
+                    and close_steps <= 2 and items[0] == SSE_HEADER
+                    and all(json.loads(x[len("data: "):])["choices"][0]
+                            ["finish_reason"] is None for x in items[1:])
+                    and len(early["tokens"]) < max_tokens)
+    finally:
+        srv.shutdown()
+    # The engine orders each step's top logprobs by a stable sort of the
+    # whole [max_seqs, vocab] f32 log-softmax (engine._sample), once a
+    # sampling step while a logprob request runs: the prefill's and K a
+    # window's. Timed here beside topk on bf16-valued logits, which tie.
+    logits = torch.randn((8, cfg.vocab_size), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(31),
+                         dtype=torch.bfloat16).float()
+    sets = copies((torch.log_softmax(logits, -1),), nbytes(logits))
+    sort_ms = cuda_ms(lambda x: x.sort(dim=-1, descending=True, stable=True),
+                      sets)
+    topk_ms = cuda_ms(lambda x: x.topk(2, dim=-1), sets)
+    sorts = [1 + K * n for n in windows]
+    del logits, sets
+    # The text checks compare something: every answer decodes to text.
+    text_tokens = sum(tok.decode([t]) != "" for _, _, recs, _ in waves
+                      for r in recs for t in r["tokens"])
+    ok_text = all(emitted_text(tok, r["tokens"]) for _, _, recs, _ in waves
+                  for r in recs)
+    k4 = cfg.num_layers * K * sum(windows)
+    k1 = n_waves * cfg.num_layers
+    ok_launch = launch_ok(launches, k4, k1)
+    ok = (not bad and max_gap <= TEACHER_TOL and finite and lp_ok
+          and ok_launch and ok_error and ok_close and ok_text)
+    check(ok, "OpenAI serving")
+    tps = [sum(len(r["tokens"]) for r in recs) / wall
+           for _, _, recs, wall in waves]
+    ttft = [[r["ttft_s"] for r in recs] for _, _, recs, _ in waves]
+    emit({"phase": "serve_openai", "layers": cfg.num_layers,
+          "dtype": str(cfg.dtype).split(".")[-1], "model": model_id,
+          "tokenizer": f"full vocab ({tok.vocab_size} ids, tokenizer_path)",
+          "requests": 8, "prompt_tokens": 128, "max_tokens": max_tokens,
+          "decode_steps": K, "waves": n_waves, "setup_s": setup_s,
+          "wall_s": [w[3] for w in waves], "tokens_per_s": tps,
+          "tokens_per_s_median": float(np.median(tps)),
+          "ttft_mean_s": [float(np.mean(t)) for t in ttft],
+          "ttft_max_s": [max(t) for t in ttft],
+          "tokens": [[len(r["tokens"]) for r in recs]
+                     for _, _, recs, _ in waves],
+          "text_tokens": text_tokens, "every_answer_text": ok_text,
+          "peak_mem_gb": peak_gb, "failed_checks": bad,
+          "teacher_max_gap": max_gap, "teacher_tol": TEACHER_TOL,
+          "logprob_max_err": lp_err, "logprob_tol": OPENAI_LP_TOL,
+          "top_logprob_ties": ties,
+          "logprob_sort": {"shape": [8, cfg.vocab_size], "ms": sort_ms,
+                           "topk_ms": topk_ms, "sorts_per_wave": sorts,
+                           "ms_per_wave": [sort_ms * n for n in sorts]},
+          "launches": launches,
+          "paged_decode_expected": k4, "flash_fwd_expected": k1,
+          "error_400": err_body, "error_ok": ok_error,
+          "early_close": {"tokens_before_close": len(early["tokens"]),
+                          "engine_steps_after_close": close_steps,
+                          "seconds_to_idle": close_s, "stats": st,
+                          "ok": ok_close},
+          "serve_8b": serve_8b, "ok": ok})
+    return {**launches, "forward_shape": shape}
+
+
+def batch_8b_phase(dev, wrappers):
+    """The batch engine stage (llm/_internal/batch.py ``_EngineStage``) at
+    Llama-3-8B width (32 layers, bf16, serve_8b's engine) on one block of 8
+    rows: ragged prompts of 64, 80, ..., 176 seeded ids, a max_tokens column
+    that gives one row 16 and the rest 48, greedy, no stop token (the
+    config's default). One warm block, then the measured one, checked
+    against a teacher-forced forward (K1) of all 8 rows right-padded to one
+    [8, 224] batch."""
+    from ray_tpu_torch.llm import ProcessorConfig
+    from ray_tpu_torch.llm._internal.batch import _EngineStage
+
+    K, n = 8, 8
+    lens = [64 + 16 * i for i in range(n)]
+    budgets = [48] * n
+    budgets[5] = 16
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stage = _EngineStage(ProcessorConfig(llm_config={
+        "model": "llama3-8b", "seed": 0, "engine_config": {
+            "max_seqs": 8, "page_size": 64, "max_pages_per_seq": 8,
+            "decode_steps": K}}, max_tokens=48), device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cfg = stage.engine.model.cfg
+
+    def block(seed):
+        rng = np.random.default_rng(seed)
+        col = np.empty(n, dtype=object)
+        col[:] = [rng.integers(0, cfg.vocab_size, m) for m in lens]
+        return {"prompt_ids": col, "max_tokens": np.array(budgets)}
+
+    stage(block(40))  # warm
+    zero_counts(wrappers)
+    batch = block(41)
+    t = time.perf_counter()
+    out = stage(batch)
+    wall = time.perf_counter() - t
+    ids = out["generated_ids"]
+    gaps, _, finite, shape = teacher_gaps(
+        stage.engine.model, [[(p.tolist(), g.tolist())
+                              for p, g in zip(batch["prompt_ids"], ids)]],
+        dev)
+    torch.cuda.synchronize()
+    launches = read_counts(wrappers)
+    peak_gb = torch.cuda.max_memory_allocated() / GB
+    max_gap = max(g for row in gaps[0] for g in row)
+    ok_column = (ids.dtype == object and ids.shape == (n,)
+                 and all(r.dtype == np.int32 for r in ids)
+                 and out["num_generated"].dtype == np.int64)
+    # No stop token: every row generates its whole budget.
+    ok_counts = out["num_generated"].tolist() == budgets and all(
+        len(r) == b for r, b in zip(ids, budgets))
+    # All 8 rows are admitted at the first step (8 slots): the prefill gives
+    # each its first token, then windows of K steps run until the longest
+    # budget ends, one K4 launch per layer and step.
+    k4 = cfg.num_layers * K * math.ceil((max(budgets) - 1) / K)
+    k1 = cfg.num_layers
+    ok = (ok_column and ok_counts and finite and max_gap <= TEACHER_TOL
+          and launch_ok(launches, k4, k1))
+    check(ok, "8B batch stage")
+    tokens = int(out["num_generated"].sum())
+    emit({"phase": "batch_8b", "layers": cfg.num_layers,
+          "dtype": str(cfg.dtype).split(".")[-1], "rows": n,
+          "prompt_tokens": lens, "max_tokens": budgets, "decode_steps": K,
+          "setup_s": setup_s, "wall_s": wall, "rows_per_s": n / wall,
+          "tokens": tokens, "tokens_per_s": tokens / wall,
+          "num_generated": out["num_generated"].tolist(),
+          "object_column": ok_column, "peak_mem_gb": peak_gb,
+          "teacher_max_gap": max_gap, "teacher_tol": TEACHER_TOL,
+          "teacher_forward": "one padded batch", "launches": launches,
+          "paged_decode_expected": k4, "flash_fwd_expected": k1,
+          "ok": ok})
+    final_lens = [m + b - 1 for m, b in zip(lens, budgets)]
+    return {**launches, "forward_shape": shape, "decode_seq_lens": final_lens}
 
 
 # ---------------------------------------------------------------------------
@@ -1472,11 +1961,18 @@ def main():
     moe = serve_moe_phase(dev, wrappers)
     gc.collect()
     torch.cuda.empty_cache()
+    openai = serve_openai_phase(dev, wrappers, serving["summary"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = batch_8b_phase(dev, wrappers)
+    gc.collect()
+    torch.cuda.empty_cache()
     # The int8 and MoE serving paths give K1 and K4 serve_8b's shapes (the
     # same heads, batch, prompt and answer), so the main-path checks below
     # cover them.
     check(int8["forward_shape"] == moe["forward_shape"]
-          == serving["forward_shape"], "serving paths' shapes")
+          == openai["forward_shape"] == serving["forward_shape"],
+          "serving paths' shapes")
 
     # Every kernel at the shapes its main path gave it: K1 and K4 at the
     # serving path's teacher-forced forward and decode, K1, K2 and K3 at the
@@ -1490,6 +1986,12 @@ def main():
                  torch.bfloat16, True, 8, dev)
     k23 = k2k3_case(attn, "main_path_backward", 2, 2048, 32, 8, 128,
                     torch.bfloat16, True, 9, dev)
+    # The batch stage's ragged rows: its teacher forward and its last
+    # decode step.
+    k1_case(attn, "batch_path_forward", *batch["forward_shape"], 32, 8, 128,
+            torch.bfloat16, True, 21, dev)
+    k4_case(paged, "batch_path_decode", torch.bfloat16,
+            batch["decode_seq_lens"], 22, dev)
     if args.versus:
         versus_phase(attn, paged, args.versus,
                      (("main_path_train", 2, 2048, True),
@@ -1511,7 +2013,8 @@ def main():
                 "pair_delta_ms": k23["pair_delta_ms"]}
 
     by_path = {n: {"train_8b": training[n], "serve_8b": serving[n],
-                   "serve_8b_int8": int8[n], "serve_moe": moe[n]}
+                   "serve_8b_int8": int8[n], "serve_moe": moe[n],
+                   "serve_openai": openai[n], "batch_8b": batch[n]}
                for n in wrappers}
     emit({"kernels": [
         {"name": "flash_fwd", "route": "cuda",

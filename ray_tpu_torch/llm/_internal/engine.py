@@ -308,9 +308,13 @@ class LLMEngine:
             # OpenAI logprobs report the UNSCALED model distribution
             logp = torch.log_softmax(logits, dim=-1)
             chosen = logp.gather(1, toks.long()[:, None])[:, 0]
-            top_vals, top_ids = logp.topk(max(1, self.cfg.max_logprobs),
-                                          dim=-1)
-            lp = (chosen, top_vals, top_ids.to(torch.int32))
+            # Equal values lowest id first, as jax.lax.top_k orders them
+            # (so a greedy token heads its alternatives): topk leaves the
+            # order of ties open, and bf16 logits tie often.
+            L = max(1, self.cfg.max_logprobs)
+            top_vals, top_ids = logp.sort(dim=-1, descending=True,
+                                          stable=True)
+            lp = (chosen, top_vals[:, :L], top_ids[:, :L].to(torch.int32))
         return toks, lp
 
     @torch.no_grad()

@@ -1,0 +1,398 @@
+"""OpenAI-compatible serving surface over the engine. Port of
+ray_tpu/llm/_internal/openai.py.
+
+``OpenAIServer`` takes the request dict a proxy hands a deployment
+(``{"suffix": path, "body": json}``) and returns the reference's wire shapes:
+
+  GET  /v1/models
+  POST /v1/completions        {"prompt": ..., "stream": bool, ...}
+  POST /v1/chat/completions   {"messages": [...], "stream": bool, ...}
+
+A unary request returns a dict; a streamed one returns an iterator whose
+first item is ``{"__http__": {"content_type": "text/event-stream"}}`` and
+whose other items are SSE lines ending in ``data: [DONE]``; a bad request
+returns ``{"__http__": {"status": 400 or 404}, "body": {"error": ...}}``.
+Text in, text out: prompts are tokenized with the byte-level BPE
+(tokenizer.py) and decoded incrementally for streaming (UTF-8 partials held
+back until complete).
+
+``build_openai_app``, the Serve application around this class, waits for
+the copy of Serve (ROADMAP Queue 1 item 5).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import time
+import uuid
+from typing import Any, Dict, Iterator, List, Optional
+
+from ray_tpu_torch.llm._internal.server import LLMServer
+from ray_tpu_torch.llm._internal.tokenizer import (
+    ByteBPETokenizer,
+    apply_chat_template,
+    get_tokenizer,
+)
+
+def _sse(obj: Dict[str, Any]) -> str:
+    return f"data: {json.dumps(obj)}\n\n"
+
+
+class _IncrementalDecoder:
+    """Streams text from token ids, holding back incomplete UTF-8 tails so
+    chunk boundaries never split multi-byte characters."""
+
+    def __init__(self, tok: ByteBPETokenizer):
+        self._tok = tok
+        self._ids: List[int] = []
+        self._emitted = 0
+
+    def push(self, token_id: int) -> str:
+        self._ids.append(token_id)
+        text = self._tok.decode(self._ids)
+        if text.endswith("�"):
+            return ""  # partial multi-byte char: wait for more tokens
+        delta = text[self._emitted:]
+        self._emitted = len(text)
+        return delta
+
+
+class _StopMatcher:
+    """Detokenized-window stop-string matching: emitted text trails the
+    decoded stream by (longest stop - 1) chars so a stop sequence that
+    spans token/chunk boundaries is caught before any of it is emitted
+    (reference: openai_api_models.py `stop`; vLLM's detokenized matcher)."""
+
+    def __init__(self, stops: List[str]):
+        self.stops = [s for s in stops if s]
+        self._hold = max((len(s) for s in self.stops), default=1) - 1
+        self._buf = ""
+
+    def push(self, delta: str) -> Any:
+        """Returns (text_to_emit, stopped)."""
+        self._buf += delta
+        best = -1
+        for s in self.stops:
+            i = self._buf.find(s)
+            if i >= 0 and (best < 0 or i < best):
+                best = i
+        if best >= 0:
+            emit, self._buf = self._buf[:best], ""
+            return emit, True
+        if self._hold and len(self._buf) > self._hold:
+            emit = self._buf[:-self._hold]
+            self._buf = self._buf[-self._hold:]
+            return emit, False
+        if not self._hold:
+            emit, self._buf = self._buf, ""
+            return emit, False
+        return "", False
+
+    def flush(self) -> str:
+        emit, self._buf = self._buf, ""
+        return emit
+
+
+class OpenAIServer:
+    """OpenAI-compatible endpoints over one engine (an ``LLMServer`` on
+    ``device``: the card unless the caller names one). The tokenizer is
+    read-only after construction, so concurrent handler threads share
+    it."""
+
+    def __init__(self, llm_config: Dict[str, Any], device=None):
+        self.model_id = llm_config.get("model_id") or llm_config.get(
+            "model", "model")
+        self.tokenizer = get_tokenizer(llm_config)
+        self.server = LLMServer(llm_config, device=device)
+        self.created = int(time.time())
+
+    # -- entry point (proxy calls __call__ with the request dict) --------
+    def __call__(self, request: Dict[str, Any]):
+        suffix = request.get("suffix", "/")
+        body = request.get("body") or {}
+        stream = isinstance(body, dict) and body.get("stream") is True
+        try:
+            if suffix.rstrip("/").endswith("/models"):
+                return self._models()
+            # Tokenize/validate HERE for the stream paths too: the stream
+            # handlers are generators, so an error raised inside them would
+            # only fire at first iteration (in the proxy's executor, as a
+            # 500) instead of this documented 400.
+            if suffix.rstrip("/").endswith("/chat/completions"):
+                if stream:
+                    return self._chat_stream(
+                        self._gen_kwargs(body), self._chat_ids(body),
+                        self._stops(body))
+                return self._chat(body)
+            if suffix.rstrip("/").endswith("/completions"):
+                if stream:
+                    return self._completions_stream(
+                        self._gen_kwargs(body), self._prompt_ids(body),
+                        self._stops(body))
+                return self._completions(body)
+        except ValueError as e:
+            return _error(400, str(e))
+        return _error(404, f"no OpenAI route for {suffix!r}")
+
+    # -- /v1/models ------------------------------------------------------
+    def _models(self) -> Dict[str, Any]:
+        return {"object": "list", "data": [{
+            "id": self.model_id, "object": "model",
+            "created": self.created, "owned_by": "ray_tpu"}]}
+
+    # -- prompt handling -------------------------------------------------
+    def _prompt_ids(self, body: Dict[str, Any]) -> List[int]:
+        prompt = body.get("prompt", "")
+        if isinstance(prompt, list):
+            if prompt and isinstance(prompt[0], int):
+                return [int(t) for t in prompt]  # pre-tokenized
+            prompt = "".join(str(p) for p in prompt)
+        return self.tokenizer.encode(str(prompt), add_bos=True)
+
+    def _chat_ids(self, body: Dict[str, Any]) -> List[int]:
+        messages = body.get("messages")
+        if not isinstance(messages, list) or not messages:
+            raise ValueError("chat/completions requires 'messages'")
+        return apply_chat_template(self.tokenizer, messages)
+
+    def _gen_kwargs(self, body: Dict[str, Any]) -> Dict[str, Any]:
+        out = {
+            "max_tokens": int(body.get("max_tokens") or 64),
+            "temperature": float(body.get("temperature") or 0.0),
+            "stop_token": self.tokenizer.eot_id,
+            "top_p": float(body.get("top_p") if body.get("top_p")
+                           is not None else 1.0),
+            "top_k": int(body.get("top_k") or 0),
+        }
+        if body.get("seed") is not None:
+            out["seed"] = int(body["seed"])
+        # completions: logprobs=<int>; chat: logprobs=true +
+        # top_logprobs=<int> (reference: openai_api_models.py:236)
+        lp = body.get("logprobs")
+        if isinstance(lp, bool):
+            out["logprobs"] = (int(body.get("top_logprobs") or 1)
+                               if lp else 0)
+        elif lp is not None:
+            out["logprobs"] = int(lp)
+        if not (0.0 < out["top_p"] <= 1.0):
+            raise ValueError(f"top_p must be in (0, 1], got {out['top_p']}")
+        if out["top_k"] < 0:
+            raise ValueError(f"top_k must be >= 0, got {out['top_k']}")
+        # "model": "<base>:<adapter>" (or a bare adapter name) selects a
+        # loaded LoRA — the reference's multiplexed model-id convention.
+        model = str(body.get("model") or "")
+        if model and model != self.model_id:
+            prefix = f"{self.model_id}:"
+            out["lora_id"] = (model[len(prefix):]
+                              if model.startswith(prefix) else model)
+        return out
+
+    @staticmethod
+    def _stops(body: Dict[str, Any]) -> List[str]:
+        stop = body.get("stop")
+        if stop is None:
+            return []
+        if isinstance(stop, str):
+            return [stop]
+        return [str(s) for s in stop]
+
+    def _run(self, ids: List[int], body: Dict[str, Any]) -> Dict[str, Any]:
+        """Unary generation with stop-string halting: consume the stream,
+        decode incrementally, and CLOSE the generator the moment a stop
+        matches — the engine aborts the request (no wasted decode)."""
+        kwargs = self._gen_kwargs(body)
+        stops = self._stops(body)
+        dec = _IncrementalDecoder(self.tokenizer)
+        matcher = _StopMatcher(stops)
+        toks: List[int] = []
+        lps: List[float] = []
+        tops: List[Any] = []
+        text = ""
+        stopped = False
+        gen = self.server.generate(ids, **kwargs)
+        try:
+            for item in gen:
+                toks.append(item["token"])
+                if "logprob" in item:
+                    lps.append(item["logprob"])
+                    tops.append(item["top_logprobs"])
+                if stops:
+                    emit, stopped = matcher.push(dec.push(item["token"]))
+                    text += emit
+                    if stopped:
+                        break
+                else:
+                    text += dec.push(item["token"])
+        finally:
+            gen.close()
+        if stops and not stopped:
+            text += matcher.flush()
+        finish = "stop" if (stopped or _finish(toks, body,
+                                               self.tokenizer) == "stop") \
+            else "length"
+        out: Dict[str, Any] = {"tokens": toks, "text": text,
+                               "finish_reason": finish}
+        if lps:
+            out["logprobs"] = lps
+            out["top_logprobs"] = tops
+        return out
+
+    def _logprobs_block(self, res: Dict[str, Any], chat: bool
+                        ) -> Optional[Dict[str, Any]]:
+        if "logprobs" not in res:
+            return None
+        tok = self.tokenizer
+        if chat:
+            content = []
+            for t, lp, top in zip(res["tokens"], res["logprobs"],
+                                  res["top_logprobs"]):
+                content.append({
+                    "token": tok.decode([t]), "logprob": lp,
+                    "top_logprobs": [
+                        {"token": tok.decode([i]), "logprob": v}
+                        for i, v in top]})
+            return {"content": content}
+        return {
+            "tokens": [tok.decode([t]) for t in res["tokens"]],
+            "token_logprobs": res["logprobs"],
+            "top_logprobs": [
+                {tok.decode([i]): v for i, v in top}
+                for top in res["top_logprobs"]],
+        }
+
+    # -- unary -----------------------------------------------------------
+    def _completions(self, body: Dict[str, Any]) -> Dict[str, Any]:
+        ids = self._prompt_ids(body)
+        res = self._run(ids, body)
+        choice: Dict[str, Any] = {
+            "index": 0, "text": res["text"],
+            "finish_reason": res["finish_reason"]}
+        lp = self._logprobs_block(res, chat=False)
+        if lp is not None:
+            choice["logprobs"] = lp
+        return {
+            "id": f"cmpl-{uuid.uuid4().hex[:24]}",
+            "object": "text_completion",
+            "created": int(time.time()),
+            "model": self.model_id,
+            "choices": [choice],
+            "usage": _usage(ids, res["tokens"]),
+        }
+
+    def _chat(self, body: Dict[str, Any]) -> Dict[str, Any]:
+        ids = self._chat_ids(body)
+        res = self._run(ids, body)
+        choice: Dict[str, Any] = {
+            "index": 0,
+            "message": {"role": "assistant", "content": res["text"]},
+            "finish_reason": res["finish_reason"]}
+        lp = self._logprobs_block(res, chat=True)
+        if lp is not None:
+            choice["logprobs"] = lp
+        return {
+            "id": f"chatcmpl-{uuid.uuid4().hex[:24]}",
+            "object": "chat.completion",
+            "created": int(time.time()),
+            "model": self.model_id,
+            "choices": [choice],
+            "usage": _usage(ids, res["tokens"]),
+        }
+
+    # -- streaming (SSE) -------------------------------------------------
+    def _stream_deltas(self, gen_kwargs: Dict[str, Any],
+                       ids: List[int],
+                       stops: List[str]) -> Iterator[str]:
+        """Common SSE core: decoded text deltas with stop-string halting
+        (the generator is closed on a match, aborting the engine slot)."""
+        dec = _IncrementalDecoder(self.tokenizer)
+        matcher = _StopMatcher(stops)
+        gen = self.server.generate(ids, **gen_kwargs)
+        stopped = False
+        try:
+            for item in gen:
+                delta = dec.push(item["token"])
+                if stops:
+                    delta, stopped = matcher.push(delta)
+                if delta:
+                    yield delta
+                if stopped:
+                    return
+        finally:
+            gen.close()
+        if stops:
+            tail = matcher.flush()
+            if tail:
+                yield tail
+
+    def _completions_stream(self, gen_kwargs: Dict[str, Any],
+                            ids: List[int],
+                            stops: List[str]) -> Iterator[Any]:
+        rid = f"cmpl-{uuid.uuid4().hex[:24]}"
+        yield {"__http__": {"content_type": "text/event-stream"}}
+        # closing(): a consumer that drops this stream closes the deltas
+        # generator, which aborts the engine request.
+        with contextlib.closing(
+                self._stream_deltas(gen_kwargs, ids, stops)) as deltas:
+            for delta in deltas:
+                yield _sse({
+                    "id": rid, "object": "text_completion",
+                    "created": int(time.time()), "model": self.model_id,
+                    "choices": [{"index": 0, "text": delta,
+                                 "finish_reason": None}]})
+        yield _sse({
+            "id": rid, "object": "text_completion",
+            "created": int(time.time()), "model": self.model_id,
+            "choices": [{"index": 0, "text": "", "finish_reason": "stop"}]})
+        yield "data: [DONE]\n\n"
+
+    def _chat_stream(self, gen_kwargs: Dict[str, Any],
+                     ids: List[int],
+                     stops: List[str]) -> Iterator[Any]:
+        rid = f"chatcmpl-{uuid.uuid4().hex[:24]}"
+        yield {"__http__": {"content_type": "text/event-stream"}}
+        yield _sse({
+            "id": rid, "object": "chat.completion.chunk",
+            "created": int(time.time()), "model": self.model_id,
+            "choices": [{"index": 0,
+                         "delta": {"role": "assistant", "content": ""},
+                         "finish_reason": None}]})
+        with contextlib.closing(
+                self._stream_deltas(gen_kwargs, ids, stops)) as deltas:
+            for delta in deltas:
+                yield _sse({
+                    "id": rid, "object": "chat.completion.chunk",
+                    "created": int(time.time()), "model": self.model_id,
+                    "choices": [{"index": 0, "delta": {"content": delta},
+                                 "finish_reason": None}]})
+        yield _sse({
+            "id": rid, "object": "chat.completion.chunk",
+            "created": int(time.time()), "model": self.model_id,
+            "choices": [{"index": 0, "delta": {},
+                         "finish_reason": "stop"}]})
+        yield "data: [DONE]\n\n"
+
+    # -- misc ------------------------------------------------------------
+    def stats(self) -> Dict[str, Any]:
+        return self.server.stats()
+
+    def check_health(self) -> bool:
+        return self.server.check_health()
+
+
+def _finish(tokens: List[int], body: Dict[str, Any],
+            tok: ByteBPETokenizer) -> str:
+    if tokens and tokens[-1] == tok.eot_id:
+        return "stop"
+    return "length"
+
+
+def _usage(prompt_ids: List[int], out_tokens: List[int]) -> Dict[str, int]:
+    return {"prompt_tokens": len(prompt_ids),
+            "completion_tokens": len(out_tokens),
+            "total_tokens": len(prompt_ids) + len(out_tokens)}
+
+
+def _error(status: int, message: str) -> Dict[str, Any]:
+    return {"__http__": {"status": status},
+            "body": {"error": {"message": message, "type": "invalid_request_error"}}}

@@ -11,6 +11,7 @@ interpret mode on the CPU.
 import dataclasses
 import math
 import os
+import pickle
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
@@ -158,6 +159,117 @@ def quant_moe_rows(rows, jparams, sd):
                                         "b": [5, 17, 42, 7]}), 0.0))
 
 
+def text_surface_rows(rows):
+    """tokenizer.py, openai.py and batch.py (tests/test_torch_openai.py and
+    tests/test_torch_batch.py's inputs and helpers)."""
+    import tempfile
+
+    import test_torch_batch as tb
+    import test_torch_openai as to
+    from ray_tpu.llm._internal import batch as jbatch
+    from ray_tpu.llm._internal import openai as jopenai
+    from ray_tpu.llm._internal import tokenizer as jtok
+    from ray_tpu_torch.llm import OpenAIServer, ProcessorConfig
+    from ray_tpu_torch.llm._internal import batch as tbatch
+    from ray_tpu_torch.llm._internal import tokenizer as ttok
+
+    d = tempfile.mkdtemp()
+    tok_path = os.path.join(d, "tok.json")
+    jtok.ByteBPETokenizer.train(to.CORPUS, vocab_size=300).save(tok_path)
+    jr, tr = jtok.ByteBPETokenizer.load(tok_path), ttok.ByteBPETokenizer.load(
+        tok_path)
+    strings = [s for seed in range(3) for s in to._strings(seed)]
+    differ = sum(tr.encode(s) != jr.encode(s)
+                 or tr.decode(tr.encode(s), skip_specials=False)
+                 != jr.decode(jr.encode(s), skip_specials=False)
+                 for s in strings)
+    differ += ttok.ByteBPETokenizer.train(to.CORPUS, 300).merges != jr.merges
+    rows.append((f"llm/_internal/tokenizer.py merges, encode/decode of "
+                 f"{len(strings)} strings that differ", "`ByteBPETokenizer`",
+                 float(differ), 0.0))
+
+    model = jllama.LlamaModel(jllama.LlamaConfig.tiny(vocab_size=512))
+    params = model.init(jax.random.PRNGKey(0),
+                        jnp.zeros((1, 8), jnp.int32))["params"]
+    params_path = os.path.join(d, "params.pkl")
+    with open(params_path, "wb") as f:
+        pickle.dump(jax.tree.map(np.asarray, params), f)
+    cfg = {"model": "tiny", "model_id": to.MODEL_ID,
+           "model_config": {"vocab_size": 512}, "params_path": params_path,
+           "tokenizer_path": tok_path,
+           "engine_config": {"max_seqs": 2, "page_size": 4,
+                             "max_pages_per_seq": 16, "decode_steps": 1}}
+    servers = (jopenai.OpenAIServer(cfg), OpenAIServer(cfg, device="cpu"))
+    requests = [
+        ("/v1/models", None),
+        ("/v1/completions", {"prompt": "the quick fox", "max_tokens": 12}),
+        ("/v1/completions", {"prompt": to.PROMPT_IDS, "max_tokens": 12,
+                             "stream": True}),
+        ("/v1/chat/completions", {"messages": to.CHAT, "max_tokens": 12}),
+        ("/v1/chat/completions", {"messages": to.CHAT, "max_tokens": 12,
+                                  "stream": True}),
+        ("/v1/completions", {"prompt": "x", "top_p": 0}),
+        ("/v1/embeddings", {})]
+    lp_requests = [
+        ("/v1/completions", {"prompt": to.PROMPT_IDS, "max_tokens": 8,
+                             "logprobs": 2}),
+        ("/v1/chat/completions", {"messages": to.CHAT, "max_tokens": 8,
+                                  "logprobs": True, "top_logprobs": 2})]
+    differ = 0
+    for suffix, body in requests:
+        p, r = to._both(servers, suffix, body)
+        differ += p != r
+    lp_err = 0.0
+    for suffix, body in lp_requests:
+        p, r = to._both(servers, suffix, body)
+        lp = (p["choices"][0]["logprobs"], r["choices"][0]["logprobs"])
+        if "content" in lp[0]:
+            vals = [[(e["logprob"], [t["logprob"] for t in e["top_logprobs"]])
+                     for e in x["content"]] for x in lp]
+            lp_err = max([lp_err] + [abs(a[0] - b[0]) for a, b in
+                                     zip(*vals)] + [
+                abs(u - v) for a, b in zip(*vals)
+                for u, v in zip(a[1], b[1])])
+        else:
+            lp_err = max([lp_err] + [abs(a - b) for a, b in zip(
+                lp[0]["token_logprobs"], lp[1]["token_logprobs"])])
+        differ += to._strip(p)["choices"][0].keys() != to._strip(
+            r)["choices"][0].keys()
+    logits = np.round(np.random.default_rng(5).standard_normal((6, 512))
+                      * 2).astype(np.float32)
+    engine = servers[1].server.engine
+    _, (_, _, ids) = engine._sample(
+        torch.from_numpy(logits), torch.zeros(6), torch.ones(6),
+        torch.zeros(6, dtype=torch.int32), [], False, True)
+    _, jids = jax.lax.top_k(jax.nn.log_softmax(jnp.asarray(logits)),
+                            engine.cfg.max_logprobs)
+    rows.append(("llm/_internal/engine.py top logprob ids on tied logits "
+                 "that differ (6 rows × 5)", "`jax.lax.top_k`",
+                 float((ids.numpy() != np.asarray(jids)).sum()), 0.0))
+    servers[1].server.shutdown()
+    servers[0].server._running = False
+    rows.append((f"llm/_internal/openai.py bodies and SSE streams that "
+                 f"differ, without id and created ({len(requests)} "
+                 "requests)", "`OpenAIServer`", float(differ), 0.0))
+    rows.append(("llm/_internal/openai.py logprobs (completions logprobs 2, "
+                 "chat top_logprobs 2)", "`OpenAIServer`", lp_err, 1e-4))
+
+    bcfg = {**cfg, "engine_config": {"max_seqs": 3, "page_size": 4,
+                                     "max_pages_per_seq": 16,
+                                     "decode_steps": 1}}
+    batch = {"prompt_ids": tb._column(tb._ragged(0)),
+             "max_tokens": np.array([4, 9, 1, 6, 12])}
+    got = tbatch._EngineStage(ProcessorConfig(llm_config=bcfg),
+                              device="cpu")(dict(batch))
+    want = jbatch._EngineStage(jbatch.ProcessorConfig(llm_config=bcfg))(
+        dict(batch))
+    differ = sum(int((a != b).sum()) if a.shape == b.shape else len(b)
+                 for a, b in zip(got["generated_ids"], want["generated_ids"]))
+    rows.append(("llm/_internal/batch.py generated ids that differ (5 "
+                 "ragged rows, per-row max_tokens)", "`_EngineStage`",
+                 float(differ), 0.0))
+
+
 def main():
     rows = []
     rng = np.random.default_rng(0)
@@ -300,6 +412,7 @@ def main():
     rows.append(("llm/_internal/engine.py greedy tokens (4 requests × 6)",
                  "`LLMEngine`", float(differ), 0.0))
     quant_moe_rows(rows, jparams, sd)
+    text_surface_rows(rows)
 
     print("| Port module | JAX counterpart | max abs error | tolerance |")
     print("|---|---|---|---|")
