@@ -20,7 +20,10 @@ Then the text surface (llm/_internal/openai.py, batch.py): OpenAIServer at
 Llama-3-8B width answers waves of completions and chat requests, unary and
 streamed, each response held to the ids the server generated and to a
 teacher-forced forward; and the batch engine stage runs a ragged block of 8
-rows at the same width. Each phase prints one JSON line; the line before
+rows at the same width. Then tensor-parallel serving (parallel/,
+llm/_internal/tp.py) with two rank processes sharing this card over gloo:
+the tiny f32 model against TP 1, and Llama-3-8B (32 layers) through
+serve_8b's waves, K1 and K4 on each rank's local heads. Each phase prints one JSON line; the line before
 the last repeats the card's name and power limit from nvidia-smi, and the
 last line is
 
@@ -618,28 +621,8 @@ def serve_8b_phase(dev, wrappers):
     rng = np.random.default_rng(0)
 
     def wave():
-        prompts = [rng.integers(0, cfg.vocab_size, prompt_len).tolist()
-                   for _ in range(n_req)]
-        res = [None] * n_req
-
-        def go(i):
-            res[i] = srv.generate_all(prompts[i], max_tokens=max_tokens)
-
-        threads = [threading.Thread(target=go, args=(i,))
-                   for i in range(n_req)]
-        t = time.perf_counter()
-        # The whole wave reaches the engine in one admission: the engine
-        # thread waits until all n_req requests are queued.
-        with srv.paused():
-            for th in threads:
-                th.start()
-            while srv.stats()["pending"] < n_req:
-                if time.perf_counter() - t > 60:
-                    raise RuntimeError("requests did not reach the server")
-                time.sleep(0.001)
-        for th in threads:
-            th.join(600)
-        return prompts, res, time.perf_counter() - t
+        return server_wave(srv, rng, cfg.vocab_size, n_req, prompt_len,
+                           max_tokens)
 
     try:
         wave()  # warm: first launches, allocator growth
@@ -698,6 +681,33 @@ def serve_8b_phase(dev, wrappers):
             "summary": {"tokens_per_s": tps,
                         "ttft_mean_s_median": float(np.median(ttft_mean)),
                         "setup_s": setup_s, "peak_mem_gb": peak_gb}}
+
+
+def server_wave(srv, rng, vocab, n_req, prompt_len, max_tokens):
+    """One wave of n_req greedy requests of prompt_len seeded ids through
+    ``srv.generate_all``, one thread each, admitted by the engine as one.
+    Returns (prompts, results, wall_s)."""
+    prompts = [rng.integers(0, vocab, prompt_len).tolist()
+               for _ in range(n_req)]
+    res = [None] * n_req
+
+    def go(i):
+        res[i] = srv.generate_all(prompts[i], max_tokens=max_tokens)
+
+    threads = [threading.Thread(target=go, args=(i,)) for i in range(n_req)]
+    t = time.perf_counter()
+    # The whole wave reaches the engine in one admission: the engine
+    # thread waits until all n_req requests are queued.
+    with srv.paused():
+        for th in threads:
+            th.start()
+        while srv.stats()["pending"] < n_req:
+            if time.perf_counter() - t > 60:
+                raise RuntimeError("requests did not reach the server")
+            time.sleep(0.001)
+    for th in threads:
+        th.join(600)
+    return prompts, res, time.perf_counter() - t
 
 
 def profile_engine(engine, prompts, max_tokens, phase="serve_8b_profile"):
@@ -1836,6 +1846,161 @@ def batch_8b_phase(dev, wrappers):
     return {**launches, "forward_shape": shape, "decode_seq_lens": final_lens}
 
 
+# Tensor-parallel phases: the ranks share this card over gloo (NCCL refuses
+# two ranks on one device), so their tokens/s measure gloo's host round
+# trips, not TP speed. tp_tiny holds TP 2's cacheless logits to TP 1's at
+# f32 (the partial sums of o_proj, down_proj and the embedding are added
+# in another order). serve_8b_tp2 holds the TP 2 flash forward's
+# log-softmax of the served answers to the TP 1 flash forward's on the
+# same ids: both round activations to bf16 at the same places but for the
+# row-parallel sums (each rank's partial rounded to bf16, then summed in
+# f32), which move a logit by about an ulp a layer; the limit is
+# TEACHER_TOL's 8 bf16 ulps of a logit in [4, 8), stated before the first
+# run.
+TP_TINY_TOL = 1e-4
+TP_LOGPROB_TOL = 0.25
+
+
+def rank_launches_ok(counts, k4, k1):
+    return all(c["paged_decode"] == k4 and c["flash_fwd"] == k1
+               for c in counts)
+
+
+def tp_tiny_phase(dev):
+    """Tiny f32 Llama with flash attention at tensor_parallel_size=2, both
+    ranks on this card over gloo, against the same seeded model at TP 1:
+    greedy tokens identical, the cacheless forward's logits within
+    TP_TINY_TOL, and each rank's K4 and K1 launches exact (K4 on local
+    heads H 2 / HK 1, K1 on [2, 10, 2/1, 32] f32)."""
+    from ray_tpu_torch.llm import LLMServer
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    cfg = dataclasses.replace(LlamaConfig.tiny(vocab_size=128),
+                              attention_impl="flash")
+    K, max_tokens = 2, 6
+    llm = {"model": "custom", "model_config": dataclasses.asdict(cfg),
+           "seed": 0, "engine_config": {"max_seqs": 2, "page_size": 4,
+                                        "max_pages_per_seq": 16,
+                                        "decode_steps": K}}
+    prompts = [[5, 17, 42], [1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11], [100, 3],
+               [11, 22, 33, 44]]
+    ids = torch.tensor([[5, 17, 42, 7, 99, 3, 0, 127, 64, 1],
+                        [1, 2, 3, 4, 42, 7, 99, 3, 0, 9]])
+    srv = LLMServer(llm, device=dev)
+    try:
+        want = [srv.generate_all(p, max_tokens=max_tokens)["tokens"]
+                for p in prompts]
+        with torch.no_grad():
+            ref = srv.model(ids.to(dev)).float()
+    finally:
+        srv.close()
+    t0 = time.perf_counter()
+    srv = LLMServer(dict(llm, tensor_parallel_size=2, tp_backend="gloo"),
+                    device=dev)
+    setup_s = time.perf_counter() - t0
+    runner = srv.engine.runner
+    procs = list(runner._procs)
+    try:
+        runner.counters(reset=True)
+        got = [srv.generate_all(p, max_tokens=max_tokens)["tokens"]
+               for p in prompts]
+        logits = runner.forward(ids).to(dev).float()
+        counts = runner.counters()
+    finally:
+        srv.close()
+    err = (logits - ref).abs().max().item()
+    k4 = len(prompts) * cfg.num_layers * K * math.ceil((max_tokens - 1) / K)
+    ok = (got == want and err <= TP_TINY_TOL
+          and rank_launches_ok(counts, k4, cfg.num_layers)
+          and all(p.poll() is not None for p in procs))
+    check(ok, "tiny TP 2 vs TP 1")
+    emit({"phase": "tp_tiny", "tensor_parallel_size": 2, "backend": "gloo",
+          "ranks": runner.info, "setup_s": setup_s, "tokens": got,
+          "tp1_tokens": want, "logits_max_abs_err": err,
+          "tol": TP_TINY_TOL, "rank_launches": counts,
+          "paged_decode_expected": k4, "flash_fwd_expected": cfg.num_layers,
+          "ok": ok})
+
+
+def serve_8b_tp2_phase(dev):
+    """serve_8b's engine config and waves at tensor_parallel_size=2: each
+    rank holds half of Llama-3-8B (32 layers, bf16, seeded: exactly TP 1's
+    slices) and of the paged KV cache, both on this card over gloo. The
+    served answers are teacher-forced through the TP model's own flash
+    forward (K1 on local heads, 16 / 4); its log-softmax of the answers is
+    held to TP 1's flash forward's on the same ids (TP_LOGPROB_TOL); each
+    rank's K4 launches are exact (num_layers x K x ceil((max_tokens - 1) /
+    K) a wave) and its peak memory is reported."""
+    from ray_tpu_torch.llm import LLMServer
+    from ray_tpu_torch.models.llama import LlamaModel, init_params
+
+    n_req, prompt_len, max_tokens, K, n_waves = 8, 128, 48, 8, 3
+    t0 = time.perf_counter()
+    srv = LLMServer({"model": "llama3-8b", "seed": 0, "engine_config": {
+        "max_seqs": 8, "page_size": 64, "max_pages_per_seq": 8,
+        "decode_steps": K}, "tensor_parallel_size": 2, "tp_backend": "gloo"},
+        device=dev)
+    setup_s = time.perf_counter() - t0
+    runner = srv.engine.runner
+    procs = list(runner._procs)
+    cfg = srv.model.cfg
+    rng = np.random.default_rng(0)
+    try:
+        server_wave(srv, rng, cfg.vocab_size, n_req, prompt_len, max_tokens)
+        start = runner.counters(reset=True)  # peaks since start: weights in
+        waves = [server_wave(srv, rng, cfg.vocab_size, n_req, prompt_len,
+                             max_tokens) for _ in range(n_waves)]
+        rows = [list(zip(prompts, [r["tokens"] for r in res]))
+                for prompts, res, _ in waves]
+        decoded = runner.counters()
+        t = time.perf_counter()
+        gaps, lps, finite, shape = teacher_gaps(
+            lambda ids: runner.forward(ids).to(dev), rows, dev)
+        teacher_s = time.perf_counter() - t
+        counts = runner.counters()
+    finally:
+        srv.close()
+    gone = all(p.poll() is not None for p in procs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = LlamaModel(cfg, device=dev)
+    init_params(model, torch.Generator(device=dev).manual_seed(0))
+    _, lps_1, finite_1, _ = teacher_gaps(model, rows, dev)
+    del model
+    lp_err = max(abs(a - b) for w, w1 in zip(lps, lps_1)
+                 for r, r1 in zip(w, w1) for a, b in zip(r, r1))
+    max_gap = max(g for w in gaps for r in w for g in r)
+    ok_tokens = all(len(r["tokens"]) == max_tokens
+                    for _, res, _ in waves for r in res)
+    k4 = n_waves * cfg.num_layers * K * math.ceil((max_tokens - 1) / K)
+    ok_launch = (rank_launches_ok(decoded, k4, 0)
+                 and rank_launches_ok(counts, k4, n_waves * cfg.num_layers))
+    ok = (ok_tokens and finite and finite_1 and max_gap <= TEACHER_TOL
+          and lp_err <= TP_LOGPROB_TOL and ok_launch and gone)
+    check(ok, "8B TP 2 serving")
+    tps = [sum(len(r["tokens"]) for r in res) / w for _, res, w in waves]
+    emit({"phase": "serve_8b_tp2", "layers": cfg.num_layers,
+          "dtype": "bfloat16", "tensor_parallel_size": 2, "backend": "gloo",
+          "ranks": runner.info, "requests": n_req,
+          "prompt_tokens": prompt_len, "max_tokens": max_tokens,
+          "decode_steps": K, "waves": n_waves, "setup_s": setup_s,
+          "wall_s": [w for _, _, w in waves],
+          "tokens_per_s_ranks_sharing_one_card_over_gloo": tps,
+          "ttft_mean_s": [float(np.mean([r["ttft_s"] for r in res]))
+                          for _, res, _ in waves],
+          "rank_peak_gb_with_weights": [c.get("peak_gb") for c in start],
+          "rank_peak_gb_serving": [c.get("peak_gb") for c in counts],
+          "teacher_s": teacher_s, "teacher_max_gap": max_gap,
+          "teacher_tol": TEACHER_TOL,
+          "tp1_logprob_max_abs_diff": lp_err,
+          "tp1_logprob_tol": TP_LOGPROB_TOL, "rank_launches": counts,
+          "paged_decode_expected": k4,
+          "flash_fwd_expected": n_waves * cfg.num_layers,
+          "ranks_exited": gone, "ok": ok})
+    return {"forward_shape": shape, "rank_launches": counts,
+            "decode_seq_len": prompt_len + max_tokens}
+
+
 # ---------------------------------------------------------------------------
 def main():
     import argparse
@@ -1967,6 +2132,10 @@ def main():
     batch = batch_8b_phase(dev, wrappers)
     gc.collect()
     torch.cuda.empty_cache()
+    tp_tiny_phase(dev)
+    tp = serve_8b_tp2_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     # The int8 and MoE serving paths give K1 and K4 serve_8b's shapes (the
     # same heads, batch, prompt and answer), so the main-path checks below
     # cover them.
@@ -1992,6 +2161,12 @@ def main():
             torch.bfloat16, True, 21, dev)
     k4_case(paged, "batch_path_decode", torch.bfloat16,
             batch["decode_seq_lens"], 22, dev)
+    # Each TP rank's local heads (16 over 4 at 8B, TP 2): its teacher
+    # forward and its last decode step.
+    k1_case(attn, "tp2_path_forward", *tp["forward_shape"], 16, 4, 128,
+            torch.bfloat16, True, 29, dev)
+    k4_case(paged, "tp2_path_decode", torch.bfloat16,
+            [tp["decode_seq_len"]] * 8, 30, dev, H=16, HK=4)
     if args.versus:
         versus_phase(attn, paged, args.versus,
                      (("main_path_train", 2, 2048, True),
@@ -2014,7 +2189,9 @@ def main():
 
     by_path = {n: {"train_8b": training[n], "serve_8b": serving[n],
                    "serve_8b_int8": int8[n], "serve_moe": moe[n],
-                   "serve_openai": openai[n], "batch_8b": batch[n]}
+                   "serve_openai": openai[n], "batch_8b": batch[n],
+                   "serve_8b_tp2_per_rank": [c.get(n, 0) for c in
+                                             tp["rank_launches"]]}
                for n in wrappers}
     emit({"kernels": [
         {"name": "flash_fwd", "route": "cuda",

@@ -1,7 +1,7 @@
 """ray_tpu_torch.llm — LLM serving and batch inference on the port
 (counterpart of ray_tpu/llm): a continuous-batching engine over a paged KV
 cache (_internal/engine.py, _internal/paged.py), the LLMServer that hosts one
-engine replica, the OpenAI-compatible surface over it (OpenAIServer), batch
+engine replica (tensor-parallel over rank processes: _internal/tp.py), the OpenAI-compatible surface over it (OpenAIServer), batch
 inference (Processor, whose engine stage runs on a dict of numpy columns)
 and the byte-level BPE tokenizer with its chat template.
 
@@ -29,6 +29,7 @@ from ray_tpu_torch.llm._internal.paged import (
     paged_gather,
     paged_write,
 )
+from ray_tpu_torch.llm._internal.runner import SeededParams
 from ray_tpu_torch.llm._internal.server import LLMServer, load_model_and_params
 from ray_tpu_torch.llm._internal.tokenizer import (
     ByteBPETokenizer,
@@ -46,6 +47,7 @@ __all__ = [
     "Processor",
     "ProcessorConfig",
     "Request",
+    "SeededParams",
     "StepOutput",
     "apply_chat_template",
     "build_llm_processor",

@@ -36,13 +36,9 @@ from ray_tpu_torch.llm._internal.paged import (
     PageAllocator,
     PagedCacheConfig,
     PrefixCache,
-    init_paged_cache,
-    to_device,
 )
-from ray_tpu_torch.models.convert import is_qleaf
-from ray_tpu_torch.models.llama import load_params
-from ray_tpu_torch.models.quant import WeightsAtUse, tree_to
-from ray_tpu_torch.utils.device import resolve_device
+from ray_tpu_torch.llm._internal.runner import ModelRunner, to_host
+from ray_tpu_torch.models.llama import tensor_parallel
 from ray_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -113,52 +109,84 @@ class StepOutput:
 
 
 # A dispatched decode window: tokens [K,B], final last_tokens [B], final
-# seq_lens [B] (all on the device), logprob arrays or None, and the slot set
+# seq_lens [B] (all on the device; under TP a pending reply of the ranks and
+# handles of their device state), logprob arrays or None, and the slot set
 # it was dispatched for.
 _Window = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Any, frozenset]
 
 
 class LLMEngine:
-    """add_request() + step() — the scheduler half of continuous batching.
+    """add_request() + step() — the scheduler half of continuous batching;
+    the device half is a ``ModelRunner`` (llm/_internal/runner.py).
 
-    ``params`` is a state dict (arrays or tensors) loaded into ``model``, or
-    None to use the model's own weights. With ``param_transform`` the engine
-    keeps ``params`` as given on the device and runs every forward on
-    ``param_transform(params)``, and ``model``'s own parameters are not
-    read (build it on the meta device to hold none). When ``params`` holds
-    quantized leaves (models/quant.py), the transform (e.g.
-    ``dequantize_tree``) runs one module's sub-tree at a time where that
-    module runs (``WeightsAtUse``), so at most one decoder layer or
+    ``params`` is a state dict (arrays or tensors) loaded into ``model``,
+    ``SeededParams``, or None to use the model's own weights. With
+    ``param_transform`` the engine keeps ``params`` as given on the device
+    and runs every forward on ``param_transform(params)``, and ``model``'s
+    own parameters are not read (build it on the meta device to hold none).
+    When ``params`` holds quantized leaves (models/quant.py), the transform
+    (e.g. ``dequantize_tree``) runs one module's sub-tree at a time where
+    that module runs (``WeightsAtUse``), so at most one decoder layer or
     ``lm_head`` exists dequantized at a time; there it must map each leaf
     to one of the same full name, or the step raises. Otherwise it runs on
     the whole tree. Runs on ``device``: the card unless the caller names
     one.
+
+    Tensor parallel: pass ``mesh`` (parallel/mesh.py) with a "tensor" axis
+    of size N > 1. The device half then runs in N rank processes on the
+    mesh's devices (llm/_internal/tp.py), each over its shard of the model
+    (``LLAMA_SHARDING``: heads/mlp/vocab over tensor) and of the paged KV
+    cache (its kv heads); ``model`` gives only the config (build it on the
+    meta device), and ``params`` must be a full state dict (each rank keeps
+    its slice) or ``SeededParams``. This engine keeps the scheduler, the
+    page allocator and the host mirrors, and sends each dispatch's host
+    inputs to every rank; rank 0 samples and returns the tokens.
+    ``tp_backend``: "nccl" (default when every rank has its own card) or
+    "gloo" (the CPU's, and the only one for ranks that share a card; it
+    must then be named). LoRA, param_transform (int8) and MoE are not
+    ported under TP; nor is a mesh axis other than "tensor" (raises).
+    ``close()`` stops the ranks.
     """
 
     def __init__(self, model, params, cfg: EngineConfig,
-                 param_transform: Optional[Callable] = None, device=None):
-        self.device = resolve_device(device)
+                 param_transform: Optional[Callable] = None, device=None,
+                 mesh=None, tp_backend: Optional[str] = None):
         self.cfg = cfg
-        self.param_transform = param_transform
-        self.params = None
-        self._weights: Optional[WeightsAtUse] = None
-        if param_transform is not None:
-            self.model = model
-            self.params = tree_to(params, self.device)
-            if any(is_qleaf(v) for v in self.params.values()):
-                self._weights = WeightsAtUse(self.params, param_transform)
-        else:
-            self.model = model.to(self.device)
-            if params is not None:
-                load_params(self.model, params)
         mcfg = model.cfg
         self.cache_cfg = PagedCacheConfig(
             num_pages=cfg.resolved_num_pages() + 1,
             page_size=cfg.page_size, max_seqs=cfg.max_seqs,
             max_pages_per_seq=cfg.max_pages_per_seq)
-        self.caches = init_paged_cache(
-            self.cache_cfg, mcfg.num_layers, mcfg.num_kv_heads,
-            mcfg.head_dim, mcfg.dtype, device=self.device)
+        self.tp = tensor_parallel(mesh, rank=0)
+        if self.tp is None:
+            self.runner = ModelRunner(model, params, cfg, self.cache_cfg,
+                                      param_transform, device)
+            self.device = self.runner.device
+            self.model = self.runner.model
+            self.params = self.runner.params
+            self.caches = self.runner.caches
+            self.lora_banks = self.runner.lora_banks
+            self._sample = self.runner._sample
+        else:
+            unported = {"LoRA (lora_rank > 0)": cfg.lora_rank > 0,
+                        "param_transform (int8 weights)":
+                            param_transform is not None,
+                        "MoE (num_experts > 0)": mcfg.num_experts > 0}
+            for what, on in unported.items():
+                if on:
+                    raise NotImplementedError(
+                        f"{what} under tensor parallelism is not ported")
+            if params is None:
+                raise ValueError("a tensor-parallel engine needs params: a "
+                                 "full state dict or SeededParams")
+            from ray_tpu_torch.llm._internal.tp import TPRunner
+
+            self.runner = TPRunner(mcfg, params, cfg, self.cache_cfg, mesh,
+                                   tp_backend)
+            self.device = None
+            self.model = model
+            self.params = None
+            self.lora_banks = None
         self.allocator = PageAllocator(self.cache_cfg)
         self.waiting: deque = deque()
         self.running: Dict[int, Request] = {}
@@ -170,52 +198,32 @@ class LLMEngine:
         self.temps = np.zeros((cfg.max_seqs,), np.float32)
         self.top_ps = np.ones((cfg.max_seqs,), np.float32)
         self.top_ks = np.zeros((cfg.max_seqs,), np.int32)
-        # Per-slot generators (seeded at admission), on the device.
-        self._gens = [torch.Generator(device=self.device).manual_seed(i)
-                      for i in range(cfg.max_seqs)]
         self._seed_counter = 0
         self._free_slots = list(range(cfg.max_seqs))
         self.prefix_cache = (PrefixCache(self.allocator)
                              if cfg.enable_prefix_cache else None)
-        # LoRA banks (slot 0 = zero adapter = base model).
-        self.lora_banks: Optional[Dict[str, Any]] = None
         self._lora_slots: Dict[str, int] = {}
         self.lora_idx = np.zeros((cfg.max_seqs,), np.int32)
-        if cfg.lora_rank > 0:
-            self.lora_banks = self._init_lora_banks()
         self._inflight: Optional[_Window] = None
+
+    @property
+    def _weights(self):
+        """The runner's ``WeightsAtUse`` (None: whole-tree transform)."""
+        return self.runner._weights
+
+    @_weights.setter
+    def _weights(self, weights) -> None:
+        self.runner._weights = weights
+
+    def close(self) -> None:
+        """Stop the rank processes of a tensor-parallel engine (a no-op
+        otherwise)."""
+        if self.tp is not None:
+            self.runner.close()
 
     # ------------------------------------------------------------------
     # LoRA multiplexing
     # ------------------------------------------------------------------
-    def _init_lora_banks(self) -> Dict[str, Any]:
-        cfg, mcfg = self.cfg, self.model.cfg
-        K = cfg.max_loras + 1  # + the zero adapter
-        r = cfg.lora_rank
-        out_dims = {
-            "q_proj": mcfg.num_heads * mcfg.head_dim,
-            "k_proj": mcfg.num_kv_heads * mcfg.head_dim,
-            "v_proj": mcfg.num_kv_heads * mcfg.head_dim,
-            "o_proj": mcfg.hidden_size,
-        }
-        in_dims = {"q_proj": mcfg.hidden_size, "k_proj": mcfg.hidden_size,
-                   "v_proj": mcfg.hidden_size,
-                   "o_proj": mcfg.num_heads * mcfg.head_dim}
-        zeros = lambda *s: torch.zeros(s, dtype=torch.float32,
-                                       device=self.device)
-        banks: Dict[str, Any] = {}
-        for i in range(mcfg.num_layers):
-            banks[f"layers_{i}"] = {
-                t: {"a": zeros(K, r, in_dims[t]),
-                    "b": zeros(K, out_dims[t], r),
-                    # per-SLOT scale: adapters share the bank, so a scalar
-                    # here would let the last load rescale every other
-                    # adapter's delta
-                    "scale": torch.ones(K, dtype=torch.float32,
-                                        device=self.device)}
-                for t in cfg.lora_targets}
-        return banks
-
     def load_lora(self, name: str, adapter: Dict[str, Any],
                   scale: float = 1.0) -> int:
         """Install adapter weights into a bank slot. `adapter` maps
@@ -230,17 +238,7 @@ class LLMEngine:
                     f"all {self.cfg.max_loras} LoRA slots in use")
             slot = len(self._lora_slots) + 1  # 0 = zero adapter
             self._lora_slots[name] = slot
-        for layer, projs in adapter.items():
-            bank_layer = self.lora_banks.get(layer)
-            if bank_layer is None:
-                continue
-            for proj, (a, b) in projs.items():
-                if proj not in bank_layer:
-                    continue
-                bank = bank_layer[proj]
-                bank["a"][slot] = torch.as_tensor(np.asarray(a, np.float32))
-                bank["b"][slot] = torch.as_tensor(np.asarray(b, np.float32))
-                bank["scale"][slot] = float(scale)
+        self.runner.load_lora(slot, adapter, scale)
         return slot
 
     def lora_slot(self, name: str) -> int:
@@ -252,149 +250,33 @@ class LLMEngine:
         return slot
 
     # ------------------------------------------------------------------
-    # Device steps
+    # Dispatch
     # ------------------------------------------------------------------
-    def _forward(self, *args, **kwargs):
-        if self.param_transform is None:
-            return self.model(*args, **kwargs)
-        if self._weights is not None:
-            return self.model(*args, weights=self._weights, **kwargs)
-        return torch.func.functional_call(
-            self.model, self.param_transform(self.params), args, kwargs)
-
-    def _sample(self, logits, temps, top_ps, top_ks, draws, rich: bool,
-                want_lp: bool):
-        """Sample one token per row of logits [n,V] (f32, device).
-
-        temps/top_ps/top_ks are [n] device tensors; ``draws`` lists the
-        (row, slot) pairs that sample (temperature > 0): each draws its
-        noise from its slot's generator, so only those generators advance.
-        rich=True applies top-k then top-p truncation (a [n,V] sort).
-        Returns (toks [n] int32, lp) where lp is None or (chosen_logp [n],
-        top_vals [n,L], top_ids [n,L])."""
-        toks = logits.argmax(dim=-1)
-        if draws:
-            scaled = logits / temps.clamp_min(1e-3)[:, None]
-            if rich:
-                V = logits.shape[-1]
-                # top-k: drop strictly below the k-th largest (k=0 off)
-                desc = scaled.sort(dim=-1, descending=True).values
-                kth = desc.gather(
-                    1, (top_ks.long() - 1).clamp(0, V - 1)[:, None])
-                scaled = torch.where(
-                    (top_ks[:, None] > 0) & (scaled < kth),
-                    float("-inf"), scaled)
-                # top-p over the surviving mass: keep a token iff the
-                # cumulative prob of STRICTLY higher-ranked tokens is
-                # still < p (the argmax token always survives)
-                desc = scaled.sort(dim=-1, descending=True).values
-                probs = torch.softmax(desc, dim=-1)
-                cum = probs.cumsum(dim=-1)
-                keep = (cum - probs) < top_ps[:, None]
-                cutoff = torch.where(keep, desc, float("inf")).amin(
-                    dim=-1, keepdim=True)
-                scaled = torch.where(scaled >= cutoff, scaled, float("-inf"))
-            # Gumbel-max: argmax(scaled + G) samples softmax(scaled).
-            gumbel = torch.zeros_like(logits)
-            for row, slot in draws:
-                u = torch.rand(logits.shape[-1], generator=self._gens[slot],
-                               device=self.device)
-                gumbel[row] = -torch.log(-torch.log(u))
-            toks = torch.where(temps > 0, (scaled + gumbel).argmax(dim=-1),
-                               toks)
-        toks = toks.to(torch.int32)
-        lp = None
-        if want_lp:
-            # OpenAI logprobs report the UNSCALED model distribution
-            logp = torch.log_softmax(logits, dim=-1)
-            chosen = logp.gather(1, toks.long()[:, None])[:, 0]
-            # Equal values lowest id first, as jax.lax.top_k orders them
-            # (so a greedy token heads its alternatives): topk leaves the
-            # order of ties open, and bf16 logits tie often.
-            L = max(1, self.cfg.max_logprobs)
-            top_vals, top_ids = logp.sort(dim=-1, descending=True,
-                                          stable=True)
-            lp = (chosen, top_vals[:, :L], top_ids[:, :L].to(torch.int32))
-        return toks, lp
-
-    @torch.no_grad()
     def _decode_window(self, last_tokens, page_table, seq_lens) -> _Window:
-        """Enqueue K decode steps over all slots. last_tokens/seq_lens [B]
-        int32 and page_table [B,MP] are device tensors; control state of
-        the slots comes from the host mirrors, copied now."""
-        B = self.cfg.max_seqs
-        K = max(1, self.cfg.decode_steps)
-        L = max(1, self.cfg.max_logprobs)
-        active = np.zeros((B,), bool)
+        """Dispatch K decode steps over all slots. last_tokens/seq_lens [B]
+        are host arrays or the in-flight window's device outputs;
+        page_table [B,MP] and the slots' control state come from the host
+        mirrors, copied now."""
+        active = np.zeros((self.cfg.max_seqs,), bool)
         for slot in self.running:
             active[slot] = True
         rich, want_lp = self._sampling_flags(self.running.values())
-        temps, top_ps, top_ks = (self._dev(self.temps),
-                                 self._dev(self.top_ps),
-                                 self._dev(self.top_ks))
-        lora_idx = self._dev(self.lora_idx)
-        # A host mask: the paged writes filter lanes without a device sync.
-        write_mask = torch.from_numpy(active.copy())[:, None]
-        draws = [(s, s) for s in range(B)
-                 if active[s] and self.temps[s] > 0]
-        out = torch.zeros((K, B), dtype=torch.int32, device=self.device)
-        lps = None
-        if want_lp:
-            lps = (torch.zeros((K, B), device=self.device),
-                   torch.zeros((K, B, L), device=self.device),
-                   torch.zeros((K, B, L), dtype=torch.int32,
-                               device=self.device))
-        toks, lens = last_tokens, seq_lens
-        for j in range(K):
-            # positions of the NEW token = current length (before write).
-            logits, _ = self._forward(
-                toks[:, None], positions=lens[:, None], paged_kv=self.caches,
-                page_table=page_table, write_mask=write_mask,
-                seq_lens=lens + 1, lora=self.lora_banks, lora_idx=lora_idx)
-            toks, lp = self._sample(logits[:, 0].float(), temps, top_ps,
-                                    top_ks, draws, rich, want_lp)
-            out[j] = toks
-            if lp is not None:
-                for dst, src in zip(lps, lp):
-                    dst[j] = src
-            lens = lens + 1
-        # Final last_tokens/seq_lens feed the NEXT window's dispatch without
-        # a host round trip (pipeline_dispatch).
+        out, toks, lens, lps = self.runner.decode_window(
+            last_tokens, page_table, seq_lens, active, self.temps,
+            self.top_ps, self.top_ks, self.lora_idx, rich, want_lp)
         return (out, toks, lens, lps, frozenset(self.running))
 
-    @torch.no_grad()
-    def _prefill(self, ids, rows, starts, true_lens, temps, top_ps, top_ks,
-                 slots, lidx, rich: bool, want_lp: bool):
-        """Batched prefill: ``nb`` sequences in ONE pass over the weights.
-        ids [nb, bucket] = each prompt's SUFFIX from absolute position
-        starts[i] (>0 when a cached prefix run was shared into its
-        page-table row); causal within each sequence. Host arrays in,
-        device tokens out."""
-        nb, bucket = ids.shape
-        positions = (self._dev(starts)[:, None]
-                     + torch.arange(bucket, device=self.device)[None, :])
-        mask = (torch.arange(bucket)[None, :]
-                < torch.from_numpy(true_lens)[:, None])
-        logits, _ = self._forward(
-            self._dev(ids), positions=positions, paged_kv=self.caches,
-            page_table=self._dev(rows), write_mask=mask,
-            seq_lens=self._dev(starts + true_lens), lora=self.lora_banks,
-            lora_idx=self._dev(lidx))
-        last = logits[torch.arange(nb, device=self.device),
-                      self._dev(true_lens - 1).long()].float()  # [nb, V]
-        draws = [(i, int(slots[i])) for i in range(nb) if temps[i] > 0]
-        return self._sample(last, self._dev(temps), self._dev(top_ps),
-                            self._dev(top_ks), draws, rich, want_lp)
+    def _host(self, toks, lp):
+        """A dispatch's tokens and logprobs on the host (blocks)."""
+        if self.tp is not None:
+            return toks.get()
+        return to_host(toks, lp)
 
     def _sampling_flags(self, reqs) -> Tuple[bool, bool]:
         rich = any(r.temperature > 0 and (r.top_p < 1.0 or r.top_k > 0)
                    for r in reqs)
         want_lp = any(r.logprobs > 0 for r in reqs)
         return rich, want_lp
-
-    def _dev(self, x) -> torch.Tensor:
-        """Host → device, copied at call time."""
-        return to_device(x, self.device)
 
     # ------------------------------------------------------------------
     # Scheduler
@@ -458,8 +340,7 @@ class LLMEngine:
         if self._inflight is None:
             self._ensure_decode_pages(K)
             self._inflight = self._decode_window(
-                self._dev(self.last_tokens), self._dev(self.page_table),
-                self._dev(self.seq_lens))
+                self.last_tokens, self.page_table, self.seq_lens)
             if not self.cfg.pipeline_dispatch:
                 self._process_window(self._inflight, out)
                 self._inflight = None
@@ -475,7 +356,7 @@ class LLMEngine:
             return out
         self._ensure_decode_pages(2 * K)
         _, last, lens, _, _ = self._inflight
-        nxt = self._decode_window(last, self._dev(self.page_table), lens)
+        nxt = self._decode_window(last, self.page_table, lens)
         finished = self._process_window(self._inflight, out)
         if finished:
             # The chained window ran with pre-finish control state. Its
@@ -497,9 +378,7 @@ class LLMEngine:
         outputs. out=None discards (pipeline drain). Returns True if any
         slot finished."""
         toks, _, _, lp, slots = window
-        toks = toks.cpu().numpy()  # [K, B] (blocks here)
-        if lp is not None:
-            lp = tuple(a.cpu().numpy() for a in lp)
+        toks, lp = self._host(toks, lp)  # [K, B] (blocks here)
         if out is None:
             return False
         K = toks.shape[0]
@@ -624,7 +503,7 @@ class LLMEngine:
             else:
                 self._seed_counter += 1
                 seed = (0x5eed << 20) + self._seed_counter
-            self._gens[slot].manual_seed(seed)
+            self.runner.seed(slot, seed)
             self.lora_idx[slot] = self.lora_slot(req.lora_id) \
                 if self.lora_banks is not None else 0
             idx = len(entries)
@@ -678,9 +557,9 @@ class LLMEngine:
                 lidx[i] = self.lora_idx[slot]
             rich, want_lp = self._sampling_flags(
                 [entries[j][1] for j in batch])
-            dev_toks, lp = self._prefill(ids, rows, starts, lens, temps,
-                                         tps, tks, slot_ids, lidx, rich,
-                                         want_lp)
+            dev_toks, lp = self.runner.prefill(ids, rows, starts, lens,
+                                               temps, tps, tks, slot_ids,
+                                               lidx, rich, want_lp)
             for i, (slot, req, _, _, _) in enumerate(wave):
                 pending.append((slot, req, dev_toks, lp, i))
             done.update(batch)
@@ -688,10 +567,7 @@ class LLMEngine:
         host: Dict[int, Any] = {}  # id(dev_toks) -> host copies
         for slot, req, dev_toks, lp, i in pending:
             if id(dev_toks) not in host:  # sync: all waves in flight
-                host[id(dev_toks)] = (
-                    dev_toks.cpu().numpy(),
-                    None if lp is None else tuple(a.cpu().numpy()
-                                                  for a in lp))
+                host[id(dev_toks)] = self._host(dev_toks, lp)
             toks_h, lp_h = host[id(dev_toks)]
             tok = int(toks_h[i])
             self.last_tokens[slot] = tok

@@ -4,6 +4,10 @@ ray_tpu/llm/_internal/server.py.
 The engine runs on a dedicated thread; request handlers enqueue work and
 stream tokens back through per-request queues. The Serve deployment around
 it (``build_llm_deployment``) waits for the slice that ports Serve's glue.
+
+``tensor_parallel_size=N`` (or a port ``Mesh`` under "mesh") serves through N
+rank processes (llm/_internal/tp.py), as the reference's engine shards over
+its mesh.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ from typing import Any, Dict, Iterator, List, Optional
 import torch
 
 from ray_tpu_torch.llm._internal.engine import EngineConfig, LLMEngine, Request
+from ray_tpu_torch.llm._internal.runner import SeededParams
+from ray_tpu_torch.llm._internal.tp import RankError
 from ray_tpu_torch.models.convert import convert_params
 from ray_tpu_torch.models.llama import (
     LlamaConfig,
@@ -26,6 +32,7 @@ from ray_tpu_torch.models.llama import (
     init_params,
     load_params,
 )
+from ray_tpu_torch.parallel.mesh import create_mesh
 from ray_tpu_torch.utils.device import resolve_device
 from ray_tpu_torch.utils.logging import get_logger
 
@@ -43,37 +50,76 @@ def load_model_and_params(llm_config: Dict[str, Any], device=None):
     - else seeded random weights from ``seed`` (a torch.Generator on the
       device)."""
     device = resolve_device(device)
-    model_cfg = llm_config.get("model_config") or {}
-    preset = llm_config.get("model", "tiny")
-    if preset == "tiny":
-        cfg = LlamaConfig.tiny(**model_cfg)
-    elif preset == "llama3-8b":
-        cfg = LlamaConfig.llama3_8b()
+    model = LlamaModel(model_config(llm_config), device=device)
+    params = weights(llm_config)
+    if isinstance(params, SeededParams):
+        init_params(model, torch.Generator(device=device).manual_seed(
+            params.seed))
     else:
-        cfg = LlamaConfig(**model_cfg)
-    model = LlamaModel(cfg, device=device)
-    params_path = llm_config.get("params_path")
-    if params_path:
-        with open(params_path, "rb") as f:
-            load_params(model, convert_params(pickle.load(f)))
-    else:
-        seed = int(llm_config.get("seed", 0))
-        init_params(model, torch.Generator(device=device).manual_seed(seed))
+        load_params(model, params)
     return model, dict(model.state_dict())
 
 
+def model_config(llm_config: Dict[str, Any]) -> LlamaConfig:
+    model_cfg = llm_config.get("model_config") or {}
+    preset = llm_config.get("model", "tiny")
+    if preset == "tiny":
+        return LlamaConfig.tiny(**model_cfg)
+    if preset == "llama3-8b":
+        return LlamaConfig.llama3_8b()
+    return LlamaConfig(**model_cfg)
+
+
+def weights(llm_config: Dict[str, Any]):
+    """The converted state dict of ``params_path`` (numpy, on the host), or
+    the seed's ``SeededParams``."""
+    params_path = llm_config.get("params_path")
+    if params_path:
+        with open(params_path, "rb") as f:
+            return convert_params(pickle.load(f))
+    return SeededParams(int(llm_config.get("seed", 0)))
+
+
+def rank_devices(device: torch.device, n: int) -> List[torch.device]:
+    """The devices of n TP ranks that follow ``device``: the CPU's for CPU
+    ranks; on CUDA, rank r on card r modulo the card count."""
+    if device.type == "cpu":
+        return [device] * n
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", r % count) for r in range(n)]
+
+
 class LLMServer:
+    """One engine replica behind a thread.
+
+    ``tensor_parallel_size=N`` builds ``create_mesh({"tensor": N})`` over N
+    rank devices that follow ``device`` (``rank_devices``); a port ``Mesh``
+    under "mesh" is taken as given. The ranks' backend is "tp_backend":
+    NCCL by default, gloo for CPU ranks; ranks that share a card need
+    "gloo" named. Each rank draws or loads its shard of the weights itself
+    (the caller holds none). ``close()`` stops the engine thread and the
+    ranks."""
+
     def __init__(self, llm_config: Dict[str, Any], device=None):
-        if int(llm_config.get("tensor_parallel_size") or 1) > 1 or \
-                llm_config.get("mesh") is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving is not ported yet (the parallel/ "
-                "slice)")
         device = resolve_device(device)
-        self.model, self.params = load_model_and_params(llm_config, device)
         eng_cfg = EngineConfig(**(llm_config.get("engine_config") or {}))
-        # The model already holds its weights: the engine loads nothing.
-        self.engine = LLMEngine(self.model, None, eng_cfg, device=device)
+        mesh = llm_config.get("mesh")
+        tp = int(llm_config.get("tensor_parallel_size") or 1)
+        if mesh is None and tp > 1:
+            mesh = create_mesh({"tensor": tp},
+                               devices=rank_devices(device, tp))
+        if mesh is not None and mesh.size > 1:
+            self.model = LlamaModel(model_config(llm_config), device="meta")
+            self.params = None
+            self.engine = LLMEngine(self.model, weights(llm_config), eng_cfg,
+                                    mesh=mesh,
+                                    tp_backend=llm_config.get("tp_backend"))
+        else:
+            self.model, self.params = load_model_and_params(llm_config,
+                                                            device)
+            # The model already holds its weights: the engine loads nothing.
+            self.engine = LLMEngine(self.model, None, eng_cfg, device=device)
+        self._failed: Optional[BaseException] = None
         self._queues: Dict[str, "queue.Queue"] = {}
         self._lock = threading.Lock()
         # Held by the engine thread while it moves pending requests into
@@ -112,6 +158,10 @@ class LLMServer:
             except Exception as e:
                 logger.exception("engine step failed")
                 with self._lock:
+                    if isinstance(e, RankError):
+                        # The ranks are gone: no later step can run.
+                        self._failed = e
+                        self._running = False
                     for q in self._queues.values():
                         q.put(("error", str(e)))
                     self._queues.clear()
@@ -137,6 +187,13 @@ class LLMServer:
         self._running = False
         self._thread.join(timeout)
 
+    def close(self, timeout: float = 30.0) -> None:
+        """Stop the engine thread, then the engine's tensor-parallel ranks:
+        each destroys its process group and exits, and any left after the
+        runner's deadline is killed."""
+        self.shutdown(timeout)
+        self.engine.close()
+
     # ------------------------------------------------------------------
     def generate(self, prompt_ids: List[int], max_tokens: int = 64,
                  temperature: float = 0.0,
@@ -151,6 +208,8 @@ class LLMServer:
         rid = uuid.uuid4().hex[:12]
         q: "queue.Queue" = queue.Queue()
         with self._lock:
+            if self._failed is not None:
+                raise RuntimeError(f"engine failed: {self._failed}")
             self._queues[rid] = q
         t0 = time.perf_counter()
         self._pending.put(Request(rid, list(prompt_ids),

@@ -22,6 +22,15 @@ recomputed in the backward, so K1 runs twice per layer and step.
 ``MoEMlp`` of models/moe.py. ``forward(..., weights=)`` takes each module's
 weights from a ``WeightsAtUse`` (models/quant.py) at its point of use instead
 of from the module: the serving path of an int8 state dict.
+
+``LlamaModel(cfg, mesh=)`` with a "tensor" axis of size N builds one rank's
+shard of the model (megatron-style TP, ``LLAMA_SHARDING``): attention holds
+h/N query heads and hk/N kv heads (all hk where N does not divide them) and
+its ``o_proj`` is row-parallel; the MLP's gate/up are column-parallel and its
+down row-parallel; ``embed_tokens`` and ``lm_head`` are vocab-parallel where
+N divides the vocabulary (the rank masks its lookup, the logits are
+gathered). A row-parallel partial is all-reduced in float32
+(parallel/tp.py). The rank runs inside a process group (llm/_internal/tp.py).
 """
 
 from __future__ import annotations
@@ -42,6 +51,13 @@ from ray_tpu_torch.ops.attention import (
     attention_reference,
     flash_attention,
 )
+from ray_tpu_torch.parallel.mesh import Mesh, mesh_shape
+from ray_tpu_torch.parallel.sharding import (
+    ParamShardingRules,
+    shard_index,
+    shard_state_dict,
+)
+from ray_tpu_torch.parallel.tp import TensorParallel
 from ray_tpu_torch.utils.device import resolve_device
 
 
@@ -84,6 +100,50 @@ class LlamaConfig:
                            num_kv_heads=2, head_dim=32, max_seq_len=512,
                            dtype=torch.float32, attention_impl="reference",
                            remat=False)
+
+
+# Parameter sharding rules: port name -> logical axes of the torch [out, in]
+# layout (ray_tpu/models/llama.py's LLAMA_SHARDING on the flax layout; the
+# tensor axis shards heads/mlp/vocab, fsdp the remaining embed dim). A q/k/v
+# weight's rows and o_proj's columns are [heads * head_dim]: they split in
+# whole heads (``blocks={"heads": head_dim}``).
+LLAMA_SHARDING = ParamShardingRules([
+    (r"embed_tokens\.weight", ("vocab", "embed_fsdp")),
+    (r"(q_proj|k_proj|v_proj)\.weight", ("heads", "embed_fsdp")),
+    (r"o_proj\.weight", ("embed_fsdp", "heads")),
+    (r"(gate_proj|up_proj)\.weight", ("mlp", "embed_fsdp")),
+    (r"down_proj\.weight", ("embed_fsdp", "mlp")),
+    # MoE experts keep the flax layout [E, in, out]; the router is a Linear.
+    (r"router\.weight", (None, "embed")),
+    (r"(gate_kernel|up_kernel)", ("expert", "embed_fsdp", "mlp")),
+    (r"down_kernel", ("expert", "mlp", "embed_fsdp")),
+    (r"lm_head\.weight", ("vocab", "embed_fsdp")),
+    (r"norm", ("embed",)),
+])
+
+
+def tensor_parallel(mesh: Optional[Mesh], rank: Optional[int] = None
+                    ) -> Optional[TensorParallel]:
+    """The TP rank of a serving mesh (None for no mesh or a tensor axis of
+    1). ``rank`` defaults to this process's rank in its process group. Any
+    other axis above 1 raises: sharded training is the next slice's."""
+    if mesh is None:
+        return None
+    other = {ax: n for ax, n in mesh_shape(mesh).items()
+             if ax != "tensor" and n > 1}
+    if other:
+        raise NotImplementedError(
+            f"mesh axes {other} are not ported: only a \"tensor\" axis "
+            "(tensor-parallel serving) is; data/fsdp/seq/stage/expert "
+            "meshes come with the sharded-training slice")
+    n = mesh.axis_size("tensor")
+    if n == 1:
+        return None
+    if rank is None:
+        import torch.distributed as dist
+
+        rank = dist.get_rank()
+    return TensorParallel(n, rank)
 
 
 class RMSNorm(nn.Module):
@@ -165,25 +225,50 @@ def _masked_attention(q, k, v, mask):
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device=None, param_dtype=None):
+    """With ``tp``: this rank's query heads [h0, h1) and kv heads (its
+    1/N, or all of them when N does not divide them). The rank's query
+    heads read the kv heads [kv0, kv1) of those it holds, a whole GQA group
+    each; a split of heads that gives its query heads unequal groups
+    raises."""
+
+    def __init__(self, cfg: LlamaConfig, device=None, param_dtype=None,
+                 tp: Optional[TensorParallel] = None):
         super().__init__()
         self.cfg = cfg
+        self.tp = tp
         h, hk, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        h0, h1 = tp.part(h) if tp else (0, h)
+        k0, k1 = tp.part(hk) if tp else (0, hk)
+        g = h // hk
+        lo, hi = h0 // g, (h1 - 1) // g + 1
+        whole = (h0 % g == 0 and (h1 - h0) % g == 0) if h1 - h0 >= g else \
+            hi - lo == 1
+        if not whole:
+            raise NotImplementedError(
+                f"query heads [{h0}, {h1}) of {h} over {hk} kv heads give "
+                "this rank unequal GQA groups; not ported")
+        self.heads, self.kv_heads = h1 - h0, k1 - k0
+        self.kv0, self.kv1 = lo - k0, hi - k0
+        # Row-parallel o_proj: its partial sums are all-reduced.
+        self.reduce = self.heads < h
         lin = lambda i, o: Linear(i, o, cfg.dtype, param_dtype or cfg.dtype,
                                   device)
-        self.q_proj = lin(cfg.hidden_size, h * d)
-        self.k_proj = lin(cfg.hidden_size, hk * d)
-        self.v_proj = lin(cfg.hidden_size, hk * d)
-        self.o_proj = lin(h * d, cfg.hidden_size)
+        self.q_proj = lin(cfg.hidden_size, self.heads * d)
+        self.k_proj = lin(cfg.hidden_size, self.kv_heads * d)
+        self.v_proj = lin(cfg.hidden_size, self.kv_heads * d)
+        self.o_proj = lin(self.heads * d, cfg.hidden_size)
 
     def forward(self, x, positions, kv_cache=None, cache_index=None,
                 paged=None, lora=None, lora_idx=None):
         cfg = self.cfg
         b, s, _ = x.shape
-        h, hk, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        h, hk, d = self.heads, self.kv_heads, cfg.head_dim
         q = self.q_proj(x).view(b, s, h, d)
         k = self.k_proj(x).view(b, s, hk, d)
         v = self.v_proj(x).view(b, s, hk, d)
+        if lora is not None and self.tp is not None:
+            raise NotImplementedError(
+                "LoRA under tensor parallelism is not ported")
         if lora is not None:
             if "q_proj" in lora:
                 q = q + lora_delta(x, lora["q_proj"], lora_idx).reshape(
@@ -200,7 +285,12 @@ class Attention(nn.Module):
             y = self.o_proj(flat)
             if lora is not None and "o_proj" in lora:
                 y = y + lora_delta(flat, lora["o_proj"], lora_idx).to(y.dtype)
-            return y
+            return self.tp.all_reduce(y) if self.reduce else y
+
+        # The kv heads this rank's query heads read: all it holds, or some
+        # where TP replicates them. A slice of the pages' leading dim (a
+        # contiguous view) and a view of k/v.
+        kv = slice(self.kv0, self.kv1)
 
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -219,8 +309,9 @@ class Attention(nn.Module):
                               paged["write_lanes"])
             paged_write_lanes(v_pages, v, paged["page_table"], pos2d,
                               paged["write_lanes"])
-            out = paged_attention(q, k_pages, v_pages, paged["page_table"],
-                                  pos2d, paged["seq_lens"])
+            out = paged_attention(q, k_pages[kv], v_pages[kv],
+                                  paged["page_table"], pos2d,
+                                  paged["seq_lens"])
             return o_proj(out), (k_pages, v_pages)
 
         if kv_cache is not None:
@@ -230,12 +321,14 @@ class Attention(nn.Module):
             cv[:, cache_index:cache_index + s] = v
             k_ids = torch.arange(ck.shape[1], device=x.device)
             q_pos = cache_index + torch.arange(s, device=x.device)
-            out = _masked_attention(q, ck, cv, k_ids[None, :] <= q_pos[:, None])
+            out = _masked_attention(q, ck[:, :, kv], cv[:, :, kv],
+                                    k_ids[None, :] <= q_pos[:, None])
             return o_proj(out), (ck, cv)
 
         if cfg.attention_impl == "ring":
             raise NotImplementedError(
                 "ring attention is not ported yet (the parallel/ slice)")
+        k, v = k[:, :, kv], v[:, :, kv]
         if cfg.attention_impl == "flash":
             out = flash_attention(q, k, v, causal=True)
         else:
@@ -244,24 +337,34 @@ class Attention(nn.Module):
 
 
 class Mlp(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device=None, param_dtype=None):
+    """With ``tp``: gate/up column-parallel, down row-parallel (its partial
+    sums all-reduced), where N divides the intermediate size."""
+
+    def __init__(self, cfg: LlamaConfig, device=None, param_dtype=None,
+                 tp: Optional[TensorParallel] = None):
         super().__init__()
         lin = lambda i, o: Linear(i, o, cfg.dtype, param_dtype or cfg.dtype,
                                   device)
-        self.gate_proj = lin(cfg.hidden_size, cfg.intermediate_size)
-        self.up_proj = lin(cfg.hidden_size, cfg.intermediate_size)
-        self.down_proj = lin(cfg.intermediate_size, cfg.hidden_size)
+        i0, i1 = tp.part(cfg.intermediate_size) if tp else (
+            0, cfg.intermediate_size)
+        self.tp = tp
+        self.reduce = i1 - i0 < cfg.intermediate_size
+        self.gate_proj = lin(cfg.hidden_size, i1 - i0)
+        self.up_proj = lin(cfg.hidden_size, i1 - i0)
+        self.down_proj = lin(i1 - i0, cfg.hidden_size)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        y = self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        return self.tp.all_reduce(y) if self.reduce else y
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device=None, param_dtype=None):
+    def __init__(self, cfg: LlamaConfig, device=None, param_dtype=None,
+                 tp: Optional[TensorParallel] = None):
         super().__init__()
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
                                        cfg.dtype, device)
-        self.self_attn = Attention(cfg, device, param_dtype)
+        self.self_attn = Attention(cfg, device, param_dtype, tp)
         self.post_attention_layernorm = RMSNorm(
             cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype, device)
         if cfg.num_experts > 0:
@@ -271,7 +374,7 @@ class DecoderLayer(nn.Module):
                               cfg.num_experts, cfg.moe_capacity_factor,
                               cfg.dtype, device, param_dtype)
         else:
-            self.mlp = Mlp(cfg, device, param_dtype)
+            self.mlp = Mlp(cfg, device, param_dtype, tp)
 
     def forward(self, x, positions, kv_cache=None, cache_index=None,
                 paged=None, lora=None, lora_idx=None):
@@ -295,22 +398,51 @@ class LlamaModel(nn.Module):
     """Parameters are created on ``device``: the card unless the caller
     names one (no CUDA and no device raises). ``param_dtype`` is the
     storage dtype of the projections, embedding and ``lm_head`` (default
-    ``cfg.dtype``; training uses torch.float32)."""
+    ``cfg.dtype``; training uses torch.float32).
 
-    def __init__(self, cfg: LlamaConfig, device=None, param_dtype=None):
+    ``mesh`` with a "tensor" axis of size N > 1 builds rank ``rank``'s shard
+    (default: this process's rank in its process group, which the forward's
+    collectives run over). MoE layers are not ported under TP (raises)."""
+
+    def __init__(self, cfg: LlamaConfig, device=None, param_dtype=None,
+                 mesh: Optional[Mesh] = None, rank: Optional[int] = None):
         super().__init__()
         device = resolve_device(device)
         param_dtype = param_dtype or cfg.dtype
         self.cfg = cfg
-        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
+        self.mesh = mesh
+        self.tp = tp = tensor_parallel(mesh, rank)
+        if tp is not None and cfg.num_experts > 0:
+            raise NotImplementedError(
+                "MoE layers under tensor parallelism are not ported (expert "
+                "parallelism comes with the sharded-training slice)")
+        v0, v1 = tp.part(cfg.vocab_size) if tp else (0, cfg.vocab_size)
+        self.vocab0 = v0
+        self.vocab_parallel = v1 - v0 < cfg.vocab_size
+        self.embed_tokens = nn.Embedding(v1 - v0, cfg.hidden_size,
                                          device=device, dtype=param_dtype)
         self.layers = nn.ModuleList(
-            [DecoderLayer(cfg, device, param_dtype)
+            [DecoderLayer(cfg, device, param_dtype, tp)
              for _ in range(cfg.num_layers)])
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype,
                             device)
-        self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size, cfg.dtype,
+        self.lm_head = Linear(cfg.hidden_size, v1 - v0, cfg.dtype,
                               param_dtype, device)
+        # The kv heads a layer holds, and so a rank's paged KV cache.
+        k0, k1 = tp.part(cfg.num_kv_heads) if tp else (0, cfg.num_kv_heads)
+        self.kv_heads = k1 - k0
+
+    def _embed(self, input_ids):
+        """Embedding rows in cfg.dtype. Vocab-parallel: each rank looks up
+        the ids in its rows and zeros the rest, and the ranks' rows are
+        summed (exact: one rank holds each id)."""
+        if not self.vocab_parallel:
+            return _cast(self.embed_tokens(input_ids), self.cfg.dtype)
+        local = input_ids - self.vocab0
+        held = (local >= 0) & (local < self.embed_tokens.num_embeddings)
+        rows = self.embed_tokens(torch.where(held, local, 0))
+        rows = torch.where(held[..., None], _cast(rows, self.cfg.dtype), 0)
+        return self.tp.all_reduce(rows)
 
     def forward(self, input_ids, positions=None, kv_caches=None,
                 cache_index=None, paged_kv=None, page_table=None,
@@ -331,12 +463,16 @@ class LlamaModel(nn.Module):
                                     and cache_index is not None) else 0
             positions = start + torch.arange(input_ids.shape[1],
                                              device=device)
+        if weights is not None and self.tp is not None:
+            raise NotImplementedError(
+                "weights at use (int8) under tensor parallelism are not "
+                "ported")
         # Gather rows, then cast: the same values as casting the table first.
         if weights is None:
-            x = self.embed_tokens(input_ids)
+            x = self._embed(input_ids)
         else:
-            x = weights("embed_tokens", rows=input_ids)["weight"]
-        x = _cast(x, cfg.dtype)
+            x = _cast(weights("embed_tokens", rows=input_ids)["weight"],
+                      cfg.dtype)
         lanes = None
         if paged_kv is not None:
             from ray_tpu_torch.llm._internal.paged import write_lanes
@@ -361,9 +497,40 @@ class LlamaModel(nn.Module):
             new_caches.append(new_cache)
         x = _run(self.norm, "norm", weights, x)
         logits = _run(self.lm_head, "lm_head", weights, x)
+        if self.vocab_parallel:
+            logits = self.tp.gather_last(logits)
         if kv_caches is not None or paged_kv is not None:
             return logits, new_caches
         return logits
+
+
+def param_shards(model: LlamaModel) -> Dict[str, Any]:
+    """{name: (full shape, this rank's index into it)} for every parameter
+    of ``model`` (the whole of each without a mesh), by ``LLAMA_SHARDING``
+    on the full model's shapes."""
+    local = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    if model.tp is None:
+        return {n: (shape, (slice(None),) * len(shape))
+                for n, shape in local.items()}
+    full = LlamaModel(model.cfg, device="meta",
+                      param_dtype=model.embed_tokens.weight.dtype)
+    out = {}
+    for n, p in full.named_parameters():
+        shape = tuple(p.shape)
+        spec = LLAMA_SHARDING.spec(n, shape, model.mesh,
+                                   {"heads": model.cfg.head_dim})
+        out[n] = (shape, shard_index(spec, shape, model.mesh, model.tp.rank))
+    return out
+
+
+def shard_params(model: LlamaModel, state_dict: Mapping[str, Any]
+                 ) -> Dict[str, Any]:
+    """A full state dict cut to ``model``'s shard (itself without a mesh):
+    ``load_params(model, shard_params(model, sd))``."""
+    if model.tp is None:
+        return dict(state_dict)
+    return shard_state_dict(state_dict, model.mesh, model.tp.rank,
+                            LLAMA_SHARDING, {"heads": model.cfg.head_dim})
 
 
 @torch.no_grad()
@@ -371,14 +538,23 @@ def init_params(model: LlamaModel, generator: torch.Generator) -> None:
     """Seeded random weights at flax's default scales: normal with
     variance 1/fan_in for every projection, 1/vocab for the embedding
     (flax's embed init), ones for the norm scales. ``generator`` lives on
-    the parameters' device."""
+    the parameters' device. A TP shard draws each full parameter in turn
+    and keeps its slice, so it holds exactly the values the unsharded model
+    gets from the same seed."""
+    shards = param_shards(model)
     for name, p in model.named_parameters():
+        full, index = shards[name]
         if p.dim() == 1:
             p.fill_(1.0)
-        elif name == "embed_tokens.weight":
-            p.normal_(0.0, 1.0 / math.sqrt(p.shape[0]), generator=generator)
+            continue
+        fan_in = full[0] if name == "embed_tokens.weight" else full[1]
+        std = 1.0 / math.sqrt(fan_in)
+        if full == tuple(p.shape):
+            p.normal_(0.0, std, generator=generator)
         else:
-            p.normal_(0.0, 1.0 / math.sqrt(p.shape[1]), generator=generator)
+            w = torch.empty(full, dtype=p.dtype, device=p.device)
+            p.copy_(w.normal_(0.0, std, generator=generator)[index])
+            del w
 
 
 @torch.no_grad()

@@ -184,14 +184,18 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 def test_port_imports_no_jax_flax_or_ray_tpu():
     """Importing every ray_tpu_torch module (the training slice's
-    ray_tpu_torch.train among them) and chip_smoke.py's imports loads no
-    jax, flax or ray_tpu."""
+    ray_tpu_torch.train, ray_tpu_torch.parallel and the tensor-parallel
+    rank process's entry module among them) and chip_smoke.py's imports
+    loads no jax, flax or ray_tpu."""
     code = r"""
 import importlib, pkgutil, sys
 import ray_tpu_torch
 for m in pkgutil.walk_packages(ray_tpu_torch.__path__, "ray_tpu_torch."):
     importlib.import_module(m.name)
-assert "ray_tpu_torch.train.step" in sys.modules
+for m in ("ray_tpu_torch.train.step", "ray_tpu_torch.parallel.mesh",
+          "ray_tpu_torch.parallel.sharding", "ray_tpu_torch.parallel.tp",
+          "ray_tpu_torch.llm._internal.tp_rank"):
+    assert m in sys.modules, m
 import chip_smoke
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "flax", "ray_tpu"))

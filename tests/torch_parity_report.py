@@ -14,6 +14,9 @@ import os
 import pickle
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
+# The 8 virtual CPU devices of tests/conftest.py, for the reference's TP.
+os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=8 "
+                           + os.environ.get("XLA_FLAGS", ""))
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -270,6 +273,79 @@ def text_surface_rows(rows):
                  float(differ), 0.0))
 
 
+def parallel_rows(rows):
+    """parallel/mesh.py, parallel/sharding.py and tensor-parallel serving
+    (tests/test_torch_parallel.py and tests/test_torch_tp.py's inputs and
+    helpers; TP starts gloo rank processes on the CPU)."""
+    import tempfile
+
+    import test_torch_parallel as tpar
+    import test_torch_tp as ttp
+    from ray_tpu.llm._internal.server import LLMServer as JaxServer
+    from ray_tpu.parallel import mesh as jmesh
+    from ray_tpu_torch.llm import LLMServer
+    from ray_tpu_torch.parallel import mesh as tmesh
+
+    differ = 0
+    for shape, n in tpar.MESH_SHAPES:
+        ref, port = tpar._meshes(shape, n)
+        differ += tmesh.mesh_shape(port) != jmesh.mesh_shape(ref)
+    for shape in tpar.MESH_ERRORS:
+        msgs = []
+        for make, devices in ((jmesh.create_mesh, jax.devices()),
+                              (tmesh.create_mesh, [tpar.CPU] * 8)):
+            try:
+                make(shape, devices=devices)
+                msgs.append(None)
+            except ValueError as e:
+                msgs.append(str(e))
+        differ += msgs[0] is None or msgs[0] != msgs[1]
+    rows.append((f"parallel/mesh.py `create_mesh` sizes and errors that "
+                 f"differ ({len(tpar.MESH_SHAPES)} shapes, "
+                 f"{len(tpar.MESH_ERRORS)} errors)", "`create_mesh`",
+                 float(differ), 0.0))
+    pairs = [p for m in tpar.SPEC_MESHES for r in tpar.RULES
+             for p in tpar.spec_pairs(m, r)]
+    rows.append((f"parallel/sharding.py `spec_for`, `_drop_indivisible` "
+                 f"that differ ({len(pairs)} cases)",
+                 "`spec_for`, `_drop_indivisible`",
+                 float(sum(a != b for a, b in pairs)), 0.0))
+    for n in (2, 4):
+        e = max(tree_err(got, want)
+                for want, got, _, _ in tpar.tiny_shards(n))
+        rows.append((f"parallel/sharding.py `shard_state_dict`, tiny, every "
+                     f"rank of TP {n}", "`addressable_shards` under "
+                     "`LLAMA_SHARDING`, converted", e, 0.0))
+    d = tempfile.mkdtemp()
+    tempfile.tempdir = d
+    path = ttp.write_params(os.path.join(d, "params.pkl"))
+    ref = JaxServer(dict(ttp.TINY, params_path=path, tensor_parallel_size=4))
+    ref_tokens = ttp._serve(ref)
+    ref._running = False
+    srv = LLMServer(dict(ttp.TINY, params_path=path), device="cpu")
+    tokens_1 = ttp._serve(srv)
+    with torch.no_grad():
+        logits_1 = srv.model(ttp.IDS)
+    srv.close()
+    n_tok = sum(len(t) for t in tokens_1)
+    for n in (2, 4):
+        srv = LLMServer(dict(ttp.TINY, params_path=path,
+                             tensor_parallel_size=n), device="cpu")
+        tokens = ttp._serve(srv)
+        logits = srv.engine.runner.forward(ttp.IDS)
+        srv.close()
+        differ = sum((a != b) + (a != c) for x, y, z in
+                     zip(tokens, tokens_1, ref_tokens)
+                     for a, b, c in zip(x, y, z))
+        rows.append((f"llm/_internal/tp.py greedy tokens at TP {n} that "
+                     f"differ from TP 1's and from the reference's TP 4 "
+                     f"({n_tok} tokens each)",
+                     "`LLMServer(tensor_parallel_size=4)`", float(differ),
+                     0.0))
+        rows.append((f"models/llama.py logits at TP {n} against TP 1",
+                     "(the port at TP 1)", err(logits, logits_1), 1e-4))
+
+
 def main():
     rows = []
     rng = np.random.default_rng(0)
@@ -413,6 +489,7 @@ def main():
                  "`LLMEngine`", float(differ), 0.0))
     quant_moe_rows(rows, jparams, sd)
     text_surface_rows(rows)
+    parallel_rows(rows)
 
     print("| Port module | JAX counterpart | max abs error | tolerance |")
     print("|---|---|---|---|")
