@@ -23,9 +23,14 @@ teacher-forced forward; and the batch engine stage runs a ragged block of 8
 rows at the same width. Then tensor-parallel serving (parallel/,
 llm/_internal/tp.py) with two rank processes sharing this card over gloo:
 the tiny f32 model against TP 1, and Llama-3-8B (32 layers) through
-serve_8b's waves, K1 and K4 on each rank's local heads. Each phase prints one JSON line; the line before
-the last repeats the card's name and power limit from nvidia-smi, and the
-last line is
+serve_8b's waves, K1 and K4 on each rank's local heads. Then sharded
+training (train/step.py with mesh=, parallel/fsdp.py, parallel/launch.py),
+its ranks sharing this card over gloo: dryrun_multigpu(4) and the tiny f32
+model at {"data": 2} against TP 1, then the Llama-3-8B widths cut to 2
+layers at {"tensor": 2} and {"fsdp": 2, "tensor": 2} against TP 1 at the
+same depth, K1, K2 and K3 on each rank's local heads. Each phase prints
+one JSON line; the line before the last repeats the card's name and power
+limit from nvidia-smi, and the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -2002,6 +2007,210 @@ def serve_8b_tp2_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# Sharded training (train/step.py with mesh=, parallel/fsdp.py,
+# parallel/launch.py): rank processes sharing this card over gloo, each
+# phase's TP 1 run in this process before its ranks start.
+#
+# Tiny, f32, flash, TF32 off: the CPU parity tests' limits
+# (tests/test_torch_train_sharded.py), against TP 1 on this card: losses
+# within 1e-5 relative, step-1 gradients within 5e-4 (the JAX tests'
+# gradient limit, tests/test_attention.py:78), weights after 3 steps within
+# 1e-4. The weights' limit is meaningful only where the step-1 gradient is
+# not zero up to f32 rounding: AdamW moves a weight by lr * g / (|g| +
+# 1e-8), so a gradient of 5e-9 that the data ranks' sum of two halves
+# moves by 3e-9 moves its weight by about 0.1 lr. Most batches of 2 x 64
+# ids give the tiny model such gradients (on the CPU, rng seeds 0-11 with
+# weight seed 3: 10 of 12 have one below 1e-8; the card's sums differ
+# again). So the weights are held where TP 1's step-1 gradient is 0 or at
+# least MESH_TINY_GRAD_FLOOR (ten times Adam's eps); the phase reports the
+# elements outside, their worst error and the error over all elements.
+MESH_TINY_LOSS_RTOL = 1e-5
+MESH_TINY_GRAD_ATOL = 5e-4
+MESH_TINY_PARAM_ATOL = 1e-4
+MESH_TINY_GRAD_FLOOR = 1e-7
+# 8B widths, bf16 compute: TP rounds each rank's partial of a row-parallel
+# product (o_proj, down_proj, the vocab-parallel embedding) to bf16 before
+# the f32 sum, where TP 1 rounds the whole product once: about one bf16 ulp
+# (2^-8 relative) on those activations a layer, and FSDP sums each rank's
+# bf16 weight gradient in f32 where TP 1 rounds one product over the whole
+# batch. The mean loss over 4,094 positions averages such errors down: the
+# limit is train_8b's flash-against-plain 1e-2 (0.1 % of a loss near
+# ln(128256) = 11.8), stated before the first run. A weight gradient's
+# rank slice is held to TP 1's same slice by its relative Frobenius error:
+# a weight gradient is a bf16 product of activations and output gradients
+# that each carry those roundings through 2 layers forward and back, about
+# six of them of up to 2^-8 relative (2.3 %); the limit is 5e-2, twice
+# that, stated before the first run (a CPU rehearsal at reduced widths
+# read 1.1-1.4 %). A gradient missing a rank's sum is off by 50 % or more.
+MESH_8B_LOSS_TOL = 1e-2
+MESH_8B_GRAD_RTOL = 5e-2
+# Llama-3-8B widths cut to 2 of 32 layers: 1.487 B parameters at 16 B
+# each (f32 weight, gradient, two AdamW moments) are 23.8 GB at TP 1 (run
+# first, in this process) and 11.9 GB a rank at TP 2.
+MESH_8B_LAYERS = 2
+MESH_GRADS = ("layers.0.self_attn.q_proj.weight",
+              "layers.0.mlp.down_proj.weight")
+
+
+def mesh_launches_ok(results, want):
+    return all(r["launches"] == want for r in results)
+
+
+def train_tiny_mesh_phase(dev):
+    """dryrun_multigpu(4) ({"tensor": 2, "fsdp": 2}, tiny, one step) with
+    its four ranks on this card; then the tiny f32 flash model at {"data":
+    2} for 3 AdamW steps at lr 1e-3 on train_tiny's batch and seed, against
+    the port's TP 1 on this card: each rank's losses, its step-1 gradients
+    and the unsharded weights within the CPU limits (MESH_TINY_*), K1, K2
+    and K3 exactly 2 a step on every rank (2 layers, no remat)."""
+    from ray_tpu_torch.entry import dryrun_multigpu, full_params, \
+        train_on_ranks
+    from ray_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    from ray_tpu_torch.train import adamw, init_train_state, make_train_step
+
+    t0 = time.perf_counter()
+    dry = dryrun_multigpu(4, device=dev)
+    dry_s = time.perf_counter() - t0
+    cfg = dataclasses.replace(LlamaConfig.tiny(), attention_impl="flash")
+    ids = np.random.default_rng(2).integers(0, 512, (2, 64))
+    steps, lr, seed = 3, 1e-3, 3
+    model = LlamaModel(cfg, device=dev, param_dtype=torch.float32)
+    opt = adamw(model.parameters(), lr)
+    batch = torch.from_numpy(ids).to(dev)
+    state = init_train_state(model, opt, batch, device=dev,
+                             generator=torch.Generator(
+                                 device=dev).manual_seed(seed))
+    step = make_train_step(model, opt)
+    losses = []
+    for i in range(steps):
+        losses.append(step(state, batch, batch)[1].item())
+        if i == 0:
+            grads = {n: p.grad.cpu().numpy()
+                     for n, p in model.named_parameters()}
+    want = {n: p.detach().cpu().numpy() for n, p in model.named_parameters()}
+    del model, opt, state
+    t0 = time.perf_counter()
+    res = train_on_ranks({"data": 2}, cfg, ids, steps, lr, device=dev,
+                         seed=seed, want_params=True, grads_of=list(want))
+    ranks_s = time.perf_counter() - t0
+    got = full_params(res)
+    loss_rel = max(abs(a - b) / abs(b) for r in res
+                   for a, b in zip(r["losses"], losses))
+    grad_err = max(float(np.abs(r["grads"][n] - grads[n]).max())
+                   for r in res for n in grads)
+    err = {n: np.abs(got[n] - want[n]) for n in want}
+    held = {n: (grads[n] == 0) | (np.abs(grads[n]) >= MESH_TINY_GRAD_FLOOR)
+            for n in want}
+    param_err = max(float(err[n][held[n]].max()) for n in want)
+    param_err_all = max(float(err[n].max()) for n in want)
+    outside = {n: int((~held[n]).sum()) for n in want if (~held[n]).any()}
+    worst = max(want, key=lambda n: err[n].max())
+    worst_grad = float(np.abs(grads[worst]).ravel()[err[worst].argmax()])
+    per_step = cfg.num_layers
+    launches = {"flash_fwd": steps * per_step,
+                "flash_bwd_dq": steps * per_step,
+                "flash_bwd_dkv": steps * per_step}
+    ok = (math.isfinite(dry) and loss_rel <= MESH_TINY_LOSS_RTOL
+          and grad_err <= MESH_TINY_GRAD_ATOL
+          and param_err <= MESH_TINY_PARAM_ATOL
+          and mesh_launches_ok(res, launches))
+    check(ok, "tiny sharded training")
+    emit({"phase": "train_tiny_mesh", "dryrun_multigpu_4_mesh":
+              {"tensor": 2, "fsdp": 2}, "dryrun_loss": dry,
+          "dryrun_s": dry_s, "mesh": {"data": 2}, "backend": "gloo",
+          "ranks_s": ranks_s, "losses": [r["losses"] for r in res],
+          "tp1_losses": losses, "loss_max_rel_err": loss_rel,
+          "loss_rtol": MESH_TINY_LOSS_RTOL, "grad_max_abs_err": grad_err,
+          "grad_atol": MESH_TINY_GRAD_ATOL, "param_max_abs_err": param_err,
+          "param_atol": MESH_TINY_PARAM_ATOL, "grad_floor":
+              MESH_TINY_GRAD_FLOOR, "elements_below_floor": outside,
+          "param_max_abs_err_all": param_err_all,
+          "worst_element": {"param": worst, "tp1_step1_grad_abs":
+                            worst_grad},
+          "rank_launches": [r["launches"] for r in res],
+          "launches_expected": launches, "ok": ok})
+
+
+def train_8b_mesh_phase(dev, name, shape):
+    """Training at the Llama-3-8B widths cut to MESH_8B_LAYERS layers (bf16
+    compute over f32 parameters, remat, AdamW at lr 3e-4, train_8b's batch
+    of 2 x 2048 seeded ids, seed 0) over ``shape``, its ranks sharing this
+    card over gloo, against TP 1 at the same depth run first in this
+    process: each step's loss, and the first step's gradient of
+    MESH_GRADS' rank slices by relative Frobenius error. Each rank's K1
+    (2 a layer and step, remat), K2 and K3 (1 each) are exact; its peak
+    memory and step seconds are recorded (gloo through host memory: no
+    sharded-training speed)."""
+    from ray_tpu_torch.entry import train_on_ranks
+    from ray_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    from ray_tpu_torch.train import adamw, init_train_state, make_train_step
+
+    B, S, lr, steps, seed = 2, 2048, 3e-4, 3, 0
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              num_layers=MESH_8B_LAYERS)
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S))
+    model = LlamaModel(cfg, device=dev, param_dtype=torch.float32)
+    opt = adamw(model.parameters(), lr)
+    batch = torch.from_numpy(ids).to(dev)
+    state = init_train_state(model, opt, batch, device=dev,
+                             generator=torch.Generator(
+                                 device=dev).manual_seed(seed))
+    step = make_train_step(model, opt)
+    params = dict(model.named_parameters())
+    torch.cuda.reset_peak_memory_stats()
+    losses, tp1_s = [], []
+    for i in range(steps):
+        t = time.perf_counter()
+        losses.append(step(state, batch, batch)[1].item())
+        tp1_s.append(time.perf_counter() - t)
+        if i == 0:
+            grads = {n: params[n].grad.float().cpu() for n in MESH_GRADS}
+    tp1_peak = torch.cuda.max_memory_allocated() / GB
+    del model, opt, state, step, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = train_on_ranks(shape, cfg, ids, steps, lr, device=dev, seed=seed,
+                         grads_of=MESH_GRADS)
+    ranks_s = time.perf_counter() - t0
+    loss_err = max(abs(a - b) for r in res
+                   for a, b in zip(r["losses"], losses))
+    grad_err = {}
+    for r in res:
+        for n in MESH_GRADS:
+            want = grads[n][r["index"][n]]
+            got = torch.from_numpy(r["grads"][n])
+            grad_err[f"rank{r['rank']}:{n}"] = (
+                torch.linalg.norm(got - want) / torch.linalg.norm(want)).item()
+    L = cfg.num_layers
+    launches = {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
+                "flash_bwd_dkv": L * steps}
+    finite = all(math.isfinite(x) for r in res for x in r["losses"])
+    ok = (finite and loss_err <= MESH_8B_LOSS_TOL
+          and max(grad_err.values()) <= MESH_8B_GRAD_RTOL
+          and mesh_launches_ok(res, launches))
+    check(ok, name)
+    row = {"phase": name, "mesh": shape, "backend": "gloo", "layers": L,
+           "of_layers": 32, "dtype": "bfloat16", "param_dtype": "float32",
+           "remat": cfg.remat, "batch": B, "seq_len": S, "lr": lr,
+           "rank_heads": [[r["heads"], r["kv_heads"]] for r in res],
+           "tp1_losses": losses, "losses": [r["losses"] for r in res],
+           "loss_max_abs_err": loss_err, "loss_tol": MESH_8B_LOSS_TOL,
+           "grad_rel_frobenius_err": grad_err,
+           "grad_rtol": MESH_8B_GRAD_RTOL, "tp1_peak_gb": tp1_peak,
+           "tp1_step_s": tp1_s,
+           "rank_peak_gb": [r.get("peak_gb") for r in res],
+           "rank_step_s_ranks_sharing_one_card_over_gloo":
+               [r["step_s"] for r in res], "ranks_s": ranks_s,
+           "rank_launches": [r["launches"] for r in res],
+           "launches_expected": launches, "ok": ok}
+    emit(row)
+    return {"rank_launches": [r["launches"] for r in res],
+            "local_heads": (res[0]["heads"], res[0]["kv_heads"]),
+            "rank_batch": B // (shape.get("data", 1) * shape.get("fsdp", 1))}
+
+
+# ---------------------------------------------------------------------------
 def main():
     import argparse
 
@@ -2136,6 +2345,14 @@ def main():
     tp = serve_8b_tp2_phase(dev)
     gc.collect()
     torch.cuda.empty_cache()
+    train_tiny_mesh_phase(dev)
+    meshes = {"train_8b_tp2": {"tensor": 2},
+              "train_8b_fsdp2_tp2": {"fsdp": 2, "tensor": 2}}
+    sharded = {}
+    for name, shape in meshes.items():
+        sharded[name] = train_8b_mesh_phase(dev, name, shape)
+        gc.collect()
+        torch.cuda.empty_cache()
     # The int8 and MoE serving paths give K1 and K4 serve_8b's shapes (the
     # same heads, batch, prompt and answer), so the main-path checks below
     # cover them.
@@ -2167,6 +2384,16 @@ def main():
             torch.bfloat16, True, 29, dev)
     k4_case(paged, "tp2_path_decode", torch.bfloat16,
             [tp["decode_seq_len"]] * 8, 30, dev, H=16, HK=4)
+    # Each sharded-training rank's local heads and rows (16 over 4 at TP
+    # 2; 2 rows at TP 2, 1 under FSDP 2): its forward, remat recompute and
+    # backward.
+    for i, (name, r) in enumerate(sharded.items()):
+        h, hk = r["local_heads"]
+        k1_case(attn, f"{name}_path_forward", r["rank_batch"], 2048, h, hk,
+                128, torch.bfloat16, True, 31 + 2 * i, dev, time_it=i == 0)
+        k2k3_case(attn, f"{name}_path_backward", r["rank_batch"], 2048, h,
+                  hk, 128, torch.bfloat16, True, 32 + 2 * i, dev,
+                  time_it=i == 0)
     if args.versus:
         versus_phase(attn, paged, args.versus,
                      (("main_path_train", 2, 2048, True),
@@ -2191,7 +2418,10 @@ def main():
                    "serve_8b_int8": int8[n], "serve_moe": moe[n],
                    "serve_openai": openai[n], "batch_8b": batch[n],
                    "serve_8b_tp2_per_rank": [c.get(n, 0) for c in
-                                             tp["rank_launches"]]}
+                                             tp["rank_launches"]],
+                   **{f"{name}_per_rank": [c.get(n, 0) for c in
+                                           r["rank_launches"]]
+                      for name, r in sharded.items()}}
                for n in wrappers}
     emit({"kernels": [
         {"name": "flash_fwd", "route": "cuda",

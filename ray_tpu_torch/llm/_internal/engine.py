@@ -157,6 +157,14 @@ class LLMEngine:
             num_pages=cfg.resolved_num_pages() + 1,
             page_size=cfg.page_size, max_seqs=cfg.max_seqs,
             max_pages_per_seq=cfg.max_pages_per_seq)
+        if mesh is not None:
+            other = {ax: n for ax, n in zip(mesh.axis_names, mesh.shape)
+                     if ax != "tensor" and n > 1}
+            if other:
+                raise NotImplementedError(
+                    f"serving over mesh axes {other} is not ported: the "
+                    "engine serves over a \"tensor\" axis; data and fsdp "
+                    "axes are the sharded-training step's (train/step.py)")
         self.tp = tensor_parallel(mesh, rank=0)
         if self.tp is None:
             self.runner = ModelRunner(model, params, cfg, self.cache_cfg,

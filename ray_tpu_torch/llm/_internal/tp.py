@@ -78,6 +78,21 @@ def resolve_backend(devices: Sequence[torch.device],
     return backend
 
 
+def rank_env(threads: int) -> Dict[str, str]:
+    """The environment of a rank process: this package importable, gloo on
+    the loopback device (the ranks share one host), ``threads`` OpenMP
+    threads."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__)))))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    env["OMP_NUM_THREADS"] = str(threads)
+    return env
+
+
 def wire(t: Optional[torch.Tensor]):
     """A tensor as a numpy array for a message (bf16 as its int16 bits)."""
     if t is None:
@@ -153,14 +168,7 @@ class TPRunner:
                 "backend": self.backend,
                 "store": os.path.join(self._dir, "store"),
                 "threads": max(1, torch.get_num_threads() // self.size)}
-        root = os.path.dirname(os.path.dirname(os.path.dirname(
-            os.path.dirname(os.path.abspath(__file__)))))
-        env = dict(os.environ)
-        env["PYTHONPATH"] = os.pathsep.join(
-            [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
-                      if p])
-        env.setdefault("GLOO_SOCKET_IFNAME", "lo")  # ranks share one host
-        env["OMP_NUM_THREADS"] = str(spec["threads"])
+        env = rank_env(spec["threads"])
         try:
             blob = pickle.dumps(spec, protocol=pickle.HIGHEST_PROTOCOL)
             for rank in range(self.size):

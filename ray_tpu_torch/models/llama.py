@@ -30,7 +30,12 @@ its ``o_proj`` is row-parallel; the MLP's gate/up are column-parallel and its
 down row-parallel; ``embed_tokens`` and ``lm_head`` are vocab-parallel where
 N divides the vocabulary (the rank masks its lookup, the logits are
 gathered). A row-parallel partial is all-reduced in float32
-(parallel/tp.py). The rank runs inside a process group (llm/_internal/tp.py).
+(parallel/tp.py), over the rank's line along "tensor"; the collectives carry
+their gradient rules, so the shard trains. The mesh may also have "data"
+and "fsdp" axes (sharded training, train/step.py): ``place_params`` then
+keeps each parameter's part of its "fsdp" dim, gathered at its use
+(parallel/fsdp.py). The rank runs inside a process group of ``mesh.size``
+processes (llm/_internal/tp.py, parallel/launch.py).
 """
 
 from __future__ import annotations
@@ -45,17 +50,19 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ray_tpu_torch.models.convert import is_qleaf
 from ray_tpu_torch.ops.attention import (
     NEG_INF,
     _gqa_expand,
     attention_reference,
     flash_attention,
 )
+from ray_tpu_torch.parallel.fsdp import FSDP, fsdp_dim, fsdp_of, place
 from ray_tpu_torch.parallel.mesh import Mesh, mesh_shape
 from ray_tpu_torch.parallel.sharding import (
     ParamShardingRules,
+    keep_axes,
     shard_index,
-    shard_state_dict,
 )
 from ray_tpu_torch.parallel.tp import TensorParallel
 from ray_tpu_torch.utils.device import resolve_device
@@ -74,7 +81,8 @@ class LlamaConfig:
     rope_theta: float = 500_000.0
     rms_norm_eps: float = 1e-5
     dtype: Any = torch.bfloat16
-    # "flash" (K1 on the card), "reference", or "ring" (the parallel/ slice)
+    # "flash" (K1 on the card), "reference", or "ring" (plain attention until
+    # ring attention over a "seq" axis is ported)
     attention_impl: str = "flash"
     # Activation checkpointing for training; inference ignores it.
     remat: bool = True
@@ -122,28 +130,41 @@ LLAMA_SHARDING = ParamShardingRules([
 ])
 
 
+# Mesh axes a model may have above size 1: the rest are not ported yet.
+MODEL_AXES = ("data", "fsdp", "tensor")
+
+
+def mesh_rank(mesh: Optional[Mesh], rank: Optional[int] = None) -> int:
+    """``rank``, or this process's rank in its process group when the mesh
+    has more than one rank (0 otherwise)."""
+    if rank is not None or mesh is None or mesh.size == 1:
+        return rank or 0
+    import torch.distributed as dist
+
+    return dist.get_rank()
+
+
 def tensor_parallel(mesh: Optional[Mesh], rank: Optional[int] = None
                     ) -> Optional[TensorParallel]:
-    """The TP rank of a serving mesh (None for no mesh or a tensor axis of
-    1). ``rank`` defaults to this process's rank in its process group. Any
-    other axis above 1 raises: sharded training is the next slice's."""
+    """The TP rank of mesh rank ``rank`` (None for no mesh or a tensor axis
+    of 1). ``rank`` defaults to this process's rank in its process group.
+    A "seq", "stage" or "expert" axis above 1 raises: ring attention, the
+    pipeline and expert parallelism are not ported yet."""
     if mesh is None:
         return None
     other = {ax: n for ax, n in mesh_shape(mesh).items()
-             if ax != "tensor" and n > 1}
+             if ax not in MODEL_AXES and n > 1}
     if other:
         raise NotImplementedError(
-            f"mesh axes {other} are not ported: only a \"tensor\" axis "
-            "(tensor-parallel serving) is; data/fsdp/seq/stage/expert "
-            "meshes come with the sharded-training slice")
+            f"mesh axes {other} are not ported: a model's mesh takes "
+            f"{MODEL_AXES} (tensor parallelism and sharded training); ring "
+            "attention (\"seq\"), the pipeline (\"stage\") and expert "
+            "parallelism (\"expert\") come in later slices")
     n = mesh.axis_size("tensor")
     if n == 1:
         return None
-    if rank is None:
-        import torch.distributed as dist
-
-        rank = dist.get_rank()
-    return TensorParallel(n, rank)
+    return TensorParallel(n, mesh.coords(mesh_rank(mesh, rank))["tensor"],
+                          mesh)
 
 
 class RMSNorm(nn.Module):
@@ -186,7 +207,26 @@ def _cast(w: torch.Tensor, dtype) -> torch.Tensor:
     return w if w.dtype == dtype else w.to(dtype)
 
 
-class Linear(nn.Linear):
+class _AtUse:
+    """The weight of a module at its use, in ``compute_dtype``: gathered
+    over the fsdp ranks when ``fsdp.place`` kept only a part of it
+    (``fsdp_dims``), and with its gradient summed over the tensor ranks
+    when ``sum_grad`` is set (a weight every TP rank holds whole but uses
+    in part)."""
+
+    fsdp: Optional[FSDP] = None
+    sum_grad: Optional[TensorParallel] = None
+
+    def weight_at_use(self) -> torch.Tensor:
+        dim = self.fsdp_dims.get("weight")
+        if dim is None:
+            w = _cast(self.weight, self.compute_dtype)
+        else:
+            w = self.fsdp.gather(self.weight, dim, self.compute_dtype)
+        return w if self.sum_grad is None else self.sum_grad.copy_in(w)
+
+
+class Linear(_AtUse, nn.Linear):
     """Bias-free ``nn.Linear`` whose weight is kept in ``param_dtype`` and
     cast to ``dtype`` at use (flax ``Dense(dtype=, param_dtype=)``)."""
 
@@ -195,9 +235,34 @@ class Linear(nn.Linear):
         super().__init__(in_features, out_features, bias=False,
                          device=device, dtype=param_dtype)
         self.compute_dtype = dtype
+        self.fsdp_dims: Dict[str, int] = {}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, _cast(self.weight, self.compute_dtype))
+        return F.linear(x, self.weight_at_use())
+
+
+class Embedding(_AtUse, nn.Embedding):
+    """``nn.Embedding`` kept in ``param_dtype`` whose rows come out in
+    ``dtype``: the rows gathered, then cast (the same values as casting
+    the table first), or the table gathered over the fsdp ranks."""
+
+    def __init__(self, num: int, dim: int, dtype, param_dtype, device=None):
+        # A table on the meta device (the full model whose shapes the
+        # sharding specs read) is given, not drawn: normal_ there runs
+        # through torch._refs, whose first call imports torch._dynamo, some
+        # seconds in every rank process.
+        weight = None
+        if device is not None and torch.device(device).type == "meta":
+            weight = torch.empty(num, dim, dtype=param_dtype, device=device)
+        super().__init__(num, dim, device=device, dtype=param_dtype,
+                         _weight=weight)
+        self.compute_dtype = dtype
+        self.fsdp_dims: Dict[str, int] = {}
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        if not self.fsdp_dims:
+            return _cast(super().forward(ids), self.compute_dtype)
+        return F.embedding(ids, self.weight_at_use())
 
 
 def lora_delta(x, bank, idx):
@@ -257,12 +322,18 @@ class Attention(nn.Module):
         self.k_proj = lin(cfg.hidden_size, self.kv_heads * d)
         self.v_proj = lin(cfg.hidden_size, self.kv_heads * d)
         self.o_proj = lin(self.heads * d, cfg.hidden_size)
+        if self.reduce and self.kv_heads == hk:
+            # Every rank holds the kv heads whole and its query heads read
+            # some: their gradients are summed over the ranks.
+            self.k_proj.sum_grad = self.v_proj.sum_grad = tp
 
     def forward(self, x, positions, kv_cache=None, cache_index=None,
                 paged=None, lora=None, lora_idx=None):
         cfg = self.cfg
         b, s, _ = x.shape
         h, hk, d = self.heads, self.kv_heads, cfg.head_dim
+        if self.reduce:
+            x = self.tp.copy_in(x)
         q = self.q_proj(x).view(b, s, h, d)
         k = self.k_proj(x).view(b, s, hk, d)
         v = self.v_proj(x).view(b, s, hk, d)
@@ -325,9 +396,8 @@ class Attention(nn.Module):
                                     k_ids[None, :] <= q_pos[:, None])
             return o_proj(out), (ck, cv)
 
-        if cfg.attention_impl == "ring":
-            raise NotImplementedError(
-                "ring attention is not ported yet (the parallel/ slice)")
+        # "ring" without a "seq" axis (a mesh with one above 1 raises at
+        # construction) is plain attention, as in the reference.
         k, v = k[:, :, kv], v[:, :, kv]
         if cfg.attention_impl == "flash":
             out = flash_attention(q, k, v, causal=True)
@@ -354,6 +424,8 @@ class Mlp(nn.Module):
         self.down_proj = lin(i1 - i0, cfg.hidden_size)
 
     def forward(self, x):
+        if self.reduce:
+            x = self.tp.copy_in(x)
         y = self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
         return self.tp.all_reduce(y) if self.reduce else y
 
@@ -400,9 +472,11 @@ class LlamaModel(nn.Module):
     storage dtype of the projections, embedding and ``lm_head`` (default
     ``cfg.dtype``; training uses torch.float32).
 
-    ``mesh`` with a "tensor" axis of size N > 1 builds rank ``rank``'s shard
-    (default: this process's rank in its process group, which the forward's
-    collectives run over). MoE layers are not ported under TP (raises)."""
+    ``mesh`` builds mesh rank ``rank``'s shard (default: this process's
+    rank in its process group, which the forward's collectives run over):
+    its "tensor" part at construction, its "fsdp" part by ``place_params``.
+    ``specs`` holds each parameter's spec on the mesh as it is placed. MoE
+    layers are not ported under TP or FSDP (raises)."""
 
     def __init__(self, cfg: LlamaConfig, device=None, param_dtype=None,
                  mesh: Optional[Mesh] = None, rank: Optional[int] = None):
@@ -411,16 +485,18 @@ class LlamaModel(nn.Module):
         param_dtype = param_dtype or cfg.dtype
         self.cfg = cfg
         self.mesh = mesh
-        self.tp = tp = tensor_parallel(mesh, rank)
-        if tp is not None and cfg.num_experts > 0:
+        self.rank = mesh_rank(mesh, rank)
+        self.tp = tp = tensor_parallel(mesh, self.rank)
+        self.fsdp = fsdp_of(mesh, self.rank)
+        if (tp is not None or self.fsdp is not None) and cfg.num_experts > 0:
             raise NotImplementedError(
-                "MoE layers under tensor parallelism are not ported (expert "
-                "parallelism comes with the sharded-training slice)")
+                "MoE layers under tensor parallelism or FSDP are not ported "
+                "(expert parallelism comes in a later slice)")
         v0, v1 = tp.part(cfg.vocab_size) if tp else (0, cfg.vocab_size)
         self.vocab0 = v0
         self.vocab_parallel = v1 - v0 < cfg.vocab_size
-        self.embed_tokens = nn.Embedding(v1 - v0, cfg.hidden_size,
-                                         device=device, dtype=param_dtype)
+        self.embed_tokens = Embedding(v1 - v0, cfg.hidden_size, cfg.dtype,
+                                      param_dtype, device)
         self.layers = nn.ModuleList(
             [DecoderLayer(cfg, device, param_dtype, tp)
              for _ in range(cfg.num_layers)])
@@ -431,17 +507,20 @@ class LlamaModel(nn.Module):
         # The kv heads a layer holds, and so a rank's paged KV cache.
         k0, k1 = tp.part(cfg.num_kv_heads) if tp else (0, cfg.num_kv_heads)
         self.kv_heads = k1 - k0
+        # The tensor part of LLAMA_SHARDING's specs: what the modules above
+        # hold.
+        self.specs = {} if mesh is None else _rule_specs(self, None)
 
     def _embed(self, input_ids):
         """Embedding rows in cfg.dtype. Vocab-parallel: each rank looks up
         the ids in its rows and zeros the rest, and the ranks' rows are
         summed (exact: one rank holds each id)."""
         if not self.vocab_parallel:
-            return _cast(self.embed_tokens(input_ids), self.cfg.dtype)
+            return self.embed_tokens(input_ids)
         local = input_ids - self.vocab0
         held = (local >= 0) & (local < self.embed_tokens.num_embeddings)
         rows = self.embed_tokens(torch.where(held, local, 0))
-        rows = torch.where(held[..., None], _cast(rows, self.cfg.dtype), 0)
+        rows = torch.where(held[..., None], rows, 0)
         return self.tp.all_reduce(rows)
 
     def forward(self, input_ids, positions=None, kv_caches=None,
@@ -463,10 +542,11 @@ class LlamaModel(nn.Module):
                                     and cache_index is not None) else 0
             positions = start + torch.arange(input_ids.shape[1],
                                              device=device)
-        if weights is not None and self.tp is not None:
+        if weights is not None and (self.tp is not None
+                                    or self.fsdp is not None):
             raise NotImplementedError(
-                "weights at use (int8) under tensor parallelism are not "
-                "ported")
+                "weights at use (int8) under tensor parallelism or FSDP are "
+                "not ported")
         # Gather rows, then cast: the same values as casting the table first.
         if weights is None:
             x = self._embed(input_ids)
@@ -496,6 +576,8 @@ class LlamaModel(nn.Module):
                 x, new_cache = _run(*args)
             new_caches.append(new_cache)
         x = _run(self.norm, "norm", weights, x)
+        if self.vocab_parallel:
+            x = self.tp.copy_in(x)
         logits = _run(self.lm_head, "lm_head", weights, x)
         if self.vocab_parallel:
             logits = self.tp.gather_last(logits)
@@ -504,33 +586,83 @@ class LlamaModel(nn.Module):
         return logits
 
 
+def _rule_specs(model: LlamaModel, rules: Optional[ParamShardingRules]
+                ) -> Dict[str, Any]:
+    """{name: spec under ``rules`` on the model's mesh} for every parameter
+    (no rules: LLAMA_SHARDING's "tensor" part, the model's TP layout)."""
+    full = LlamaModel(model.cfg, device="meta")
+    blocks = {"heads": model.cfg.head_dim}
+    if rules is not None:
+        return {n: rules.spec(n, p.shape, model.mesh, blocks)
+                for n, p in full.named_parameters()}
+    return {n: keep_axes(LLAMA_SHARDING.spec(n, p.shape, model.mesh, blocks),
+                         ("tensor",))
+            for n, p in full.named_parameters()}
+
+
 def param_shards(model: LlamaModel) -> Dict[str, Any]:
     """{name: (full shape, this rank's index into it)} for every parameter
-    of ``model`` (the whole of each without a mesh), by ``LLAMA_SHARDING``
-    on the full model's shapes."""
-    local = {n: tuple(p.shape) for n, p in model.named_parameters()}
-    if model.tp is None:
-        return {n: (shape, (slice(None),) * len(shape))
-                for n, shape in local.items()}
-    full = LlamaModel(model.cfg, device="meta",
-                      param_dtype=model.embed_tokens.weight.dtype)
-    out = {}
-    for n, p in full.named_parameters():
-        shape = tuple(p.shape)
-        spec = LLAMA_SHARDING.spec(n, shape, model.mesh,
-                                   {"heads": model.cfg.head_dim})
-        out[n] = (shape, shard_index(spec, shape, model.mesh, model.tp.rank))
-    return out
+    of ``model`` (the whole of each without a mesh), by its ``specs``."""
+    if model.mesh is None:
+        return {n: (tuple(p.shape), (slice(None),) * p.dim())
+                for n, p in model.named_parameters()}
+    full = LlamaModel(model.cfg, device="meta")
+    return {n: (tuple(p.shape), shard_index(model.specs[n], p.shape,
+                                            model.mesh, model.rank))
+            for n, p in full.named_parameters()}
 
 
 def shard_params(model: LlamaModel, state_dict: Mapping[str, Any]
                  ) -> Dict[str, Any]:
     """A full state dict cut to ``model``'s shard (itself without a mesh):
-    ``load_params(model, shard_params(model, sd))``."""
-    if model.tp is None:
+    ``load_params(model, shard_params(model, sd))``. Quantized leaves are
+    not sharded (raises)."""
+    if model.mesh is None:
         return dict(state_dict)
-    return shard_state_dict(state_dict, model.mesh, model.tp.rank,
-                            LLAMA_SHARDING, {"heads": model.cfg.head_dim})
+    out = {}
+    for name, (_, index) in param_shards(model).items():
+        value = state_dict[name]
+        if is_qleaf(value):
+            raise NotImplementedError(
+                f"{name}: sharding a quantized leaf is not ported")
+        out[name] = value[index]
+    return out
+
+
+def place_params(model: LlamaModel,
+                 rules: Optional[ParamShardingRules]) -> None:
+    """Shard ``model``'s parameters over the mesh's "fsdp" axis as
+    ``rules`` place them (``rules.spec`` of each, as the reference applies
+    any rules; None places nothing over fsdp): each keeps this rank's part
+    of the dim whose spec names "fsdp", and its module gathers the whole at
+    use (parallel/fsdp.py). The tensor part of every spec must be what the
+    model holds (its TP layout is built at construction), and the
+    optimizer over these parameters must not have stepped yet. Placing
+    again by the same rules changes nothing; by other rules raises."""
+    if model.mesh is None:
+        return
+    specs = _rule_specs(model, rules)
+    changed = sorted(n for n in specs if specs[n] != model.specs[n])
+    modules = dict(model.named_modules())
+    for n in changed:
+        have, want = model.specs[n], specs[n]
+        if keep_axes(want, ("tensor",)) != keep_axes(have, ("tensor",)):
+            raise ValueError(
+                f"{n}: the rules shard it over \"tensor\" as {want}, the "
+                f"model as {have} (its layout is LLAMA_SHARDING's)")
+        if fsdp_dim(have) is not None:
+            raise ValueError(f"{n} is placed as {have}; the rules place it "
+                             f"as {want}")
+        owner, _, attr = n.rpartition(".")
+        if (keep_axes(want, ("tensor", "fsdp")) != want
+                or not hasattr(modules[owner], "fsdp_dims")):
+            raise NotImplementedError(
+                f"{n}: placing it as {want} is not ported (only Linear and "
+                "Embedding weights shard, over \"fsdp\")")
+    for n in changed:
+        owner, _, attr = n.rpartition(".")
+        place(modules[owner], attr, fsdp_dim(specs[n]), model.fsdp)
+        model.specs[n] = specs[n]
 
 
 @torch.no_grad()

@@ -1,7 +1,10 @@
 """Parallelism for the port (counterpart of ray_tpu/parallel): the device
-mesh (mesh.py), logical-axis sharding rules and per-rank shards of a state
-dict (sharding.py), and the collectives of a tensor-parallel rank (tp.py).
+mesh and its per-axis process groups (mesh.py), logical-axis sharding rules
+and per-rank shards of a state dict (sharding.py), the collectives of a
+tensor-parallel rank with their gradient rules (tp.py), FSDP's gather and
+reduce-scatter (fsdp.py) and the rank processes of a program over a whole
+mesh (launch.py).
 
-Ported so far: the serving half, tensor parallelism over a "tensor" axis.
-Sharded training (data/fsdp axes), ring attention (ring.py), the pipeline
-(pipeline.py) and expert parallelism are the next slice's."""
+Ported so far: tensor-parallel serving and sharded training over "data",
+"fsdp" and "tensor" axes. Ring attention (ring.py), the pipeline
+(pipeline.py) and expert parallelism are later slices."""

@@ -1,0 +1,184 @@
+"""Rank processes for a program that runs over a whole mesh (a sharded
+train step): one process per mesh device, all running one function.
+
+The reference runs such a program as one XLA executable over the mesh's
+devices; the port starts ``mesh.size`` processes instead:
+
+    python -m ray_tpu_torch.parallel.launch RANK FD
+
+where FD is the rank's end of a socket pair to the caller. Each rank joins
+a process group of ``mesh.size`` (a FileStore rendezvous in a fresh
+temporary directory; the backend as ``llm/_internal/tp.py``'s
+``resolve_backend`` picks it: gloo on the CPU or when ranks share a card),
+calls ``target(mesh=mesh, rank=rank, **kwargs)``, sends back what it
+returns, destroys the group and exits. Messages are pickles of plain
+Python and numpy objects written by this module on both sides.
+
+A rank that exits, fails, or does not answer within the timeout fails the
+job: every rank is stopped and the caller raises. After ``close()`` no rank
+process and no rendezvous directory is left.
+"""
+
+from __future__ import annotations
+
+import datetime
+import importlib
+import os
+import pickle
+import shutil
+import socket
+import subprocess
+import sys
+import tempfile
+import time
+import traceback
+import warnings
+from multiprocessing.connection import Connection
+from typing import Any, Dict, List, Optional
+
+import torch
+import torch.distributed as dist
+
+from ray_tpu_torch.llm._internal.tp import RankError, rank_env, resolve_backend
+from ray_tpu_torch.parallel.mesh import Mesh
+
+# A job's answer must arrive within this unless the caller gives another.
+TIMEOUT_S = 900.0
+STOP_TIMEOUT_S = 30.0
+POLL_S = 0.05
+
+
+class RankJob:
+    """``target`` ("module:function") run in one process per rank of
+    ``mesh``, started at construction; ``results()`` waits for them."""
+
+    def __init__(self, target: str, mesh: Mesh,
+                 kwargs: Optional[Dict[str, Any]] = None,
+                 backend: Optional[str] = None):
+        self.mesh = mesh
+        self.backend = resolve_backend(mesh.devices, backend)
+        self._procs: List[subprocess.Popen] = []
+        self._conns: List[Connection] = []
+        self._dir = tempfile.mkdtemp(prefix="ray_tpu_torch_ranks_")
+        threads = max(1, torch.get_num_threads() // mesh.size)
+        spec = {"target": target, "kwargs": kwargs or {}, "mesh": mesh,
+                "backend": self.backend, "threads": threads,
+                "store": os.path.join(self._dir, "store")}
+        try:
+            blob = pickle.dumps(spec, protocol=pickle.HIGHEST_PROTOCOL)
+            env = rank_env(threads)
+            for rank in range(mesh.size):
+                mine, theirs = socket.socketpair()
+                with theirs:
+                    self._procs.append(subprocess.Popen(
+                        [sys.executable, "-m", __name__, str(rank),
+                         str(theirs.fileno())],
+                        pass_fds=(theirs.fileno(),), env=env))
+                self._conns.append(Connection(mine.detach()))
+            for conn in self._conns:
+                conn.send_bytes(blob)
+        except BaseException:
+            self.close()
+            raise
+
+    def results(self, timeout: float = TIMEOUT_S) -> List[Any]:
+        """Every rank's result, in rank order; then the ranks are gone."""
+        done = False
+        try:
+            deadline = time.monotonic() + timeout
+            out = []
+            for r, conn in enumerate(self._conns):
+                while not conn.poll(POLL_S):
+                    for q, p in enumerate(self._procs):
+                        if p.poll() is not None and p.returncode != 0:
+                            self._answer(q)  # its traceback, if it sent one
+                            raise RankError(f"rank {q} exited with code "
+                                            f"{p.returncode}")
+                    if time.monotonic() > deadline:
+                        raise RankError(f"rank {r} did not answer within "
+                                        f"{timeout:.0f} s")
+                out.append(self._answer(r))
+            done = True
+            return out
+        finally:
+            self.close(graceful=done)
+
+    def _answer(self, r: int) -> Any:
+        conn = self._conns[r]
+        try:
+            if not conn.poll(0):
+                return None
+            ok, payload = pickle.loads(conn.recv_bytes())
+        except (EOFError, OSError):
+            raise RankError(f"rank {r} closed its connection")
+        if not ok:
+            raise RankError(f"rank {r} failed:\n{payload}")
+        return payload
+
+    def close(self, graceful: bool = False) -> None:
+        """Kill the ranks (``graceful``: those still there after
+        ``STOP_TIMEOUT_S``), remove the rendezvous directory. Idempotent."""
+        deadline = time.monotonic() + (STOP_TIMEOUT_S if graceful else 0)
+        for conn in self._conns:
+            conn.close()
+        for p in self._procs:
+            try:
+                p.wait(max(0.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                pass
+        for p in self._procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(STOP_TIMEOUT_S)
+        self._conns, self._procs = [], []
+        shutil.rmtree(self._dir, ignore_errors=True)
+
+
+def run_ranks(target: str, mesh: Mesh,
+              kwargs: Optional[Dict[str, Any]] = None,
+              backend: Optional[str] = None,
+              timeout: float = TIMEOUT_S) -> List[Any]:
+    """``target(mesh=mesh, rank=r, **kwargs)`` in each rank process r of
+    ``mesh``; their results in rank order."""
+    return RankJob(target, mesh, kwargs, backend).results(timeout)
+
+
+def rank_main(rank: int, fd: int) -> int:
+    # torch names all_gather_into_tensor and reduce_scatter_tensor
+    # deprecated; the names that replace them are not in every torch this
+    # port runs on.
+    warnings.filterwarnings("ignore", category=FutureWarning,
+                            module="torch.distributed")
+    conn = Connection(fd)
+    try:
+        try:
+            spec = pickle.loads(conn.recv_bytes())
+        except (EOFError, OSError):
+            return 1  # the caller is gone
+        try:
+            mesh = spec["mesh"]
+            device = mesh.devices[rank]
+            torch.set_num_threads(spec["threads"])
+            if device.type == "cuda":
+                torch.cuda.set_device(device)
+            dist.init_process_group(
+                spec["backend"],
+                store=dist.FileStore(spec["store"], mesh.size), rank=rank,
+                world_size=mesh.size,
+                timeout=datetime.timedelta(seconds=TIMEOUT_S))
+            module, _, name = spec["target"].partition(":")
+            fn = getattr(importlib.import_module(module), name)
+            result = (True, fn(mesh=mesh, rank=rank, **spec["kwargs"]))
+        except Exception:
+            result = (False, traceback.format_exc())
+        conn.send_bytes(pickle.dumps(result,
+                                     protocol=pickle.HIGHEST_PROTOCOL))
+        return 0 if result[0] else 1
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        conn.close()
+
+
+if __name__ == "__main__":
+    sys.exit(rank_main(int(sys.argv[1]), int(sys.argv[2])))

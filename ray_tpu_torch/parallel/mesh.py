@@ -3,8 +3,9 @@
 A ``Mesh`` is a plain object: the size of each canonical axis and one
 ``torch.device`` per rank, rank r at the row-major position r of the axis
 sizes (the outer axes vary slowest, as in the JAX mesh's device array).
-Nothing here starts a process or a process group: those are made inside the
-rank processes (llm/_internal/tp.py).
+Nothing here starts a process; the process group is made inside the rank
+processes (llm/_internal/tp.py, parallel/launch.py), and ``axis_group``
+makes, inside a rank, the subgroup of the ranks on its line along an axis.
 
 Canonical axes (order matters, outer to inner):
     "data"    pure data parallelism
@@ -22,6 +23,7 @@ import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 AXIS_ORDER = ("data", "fsdp", "stage", "expert", "seq", "tensor")
 
@@ -109,3 +111,59 @@ def mesh_shape(mesh: Mesh) -> Dict[str, int]:
 def dp_axes(mesh: Mesh) -> List[str]:
     """Axes over which gradients are summed (data + fsdp)."""
     return [ax for ax in ("data", "fsdp") if mesh_shape(mesh).get(ax, 1) >= 1]
+
+
+def axis_ranks(mesh: Mesh, axis: str, rank: int) -> List[int]:
+    """The ranks on ``rank``'s line along ``axis`` (every other axis at
+    ``rank``'s coordinate), in order of their coordinate on ``axis``."""
+    names = list(mesh.axis_names)
+    i = names.index(axis)
+    coords = _unravel(rank, mesh.shape)
+    out = []
+    for c in range(mesh.shape[i]):
+        coords[i] = c
+        r = 0
+        for n, x in zip(mesh.shape, coords):
+            r = r * n + x
+        out.append(r)
+    return out
+
+
+# Per mesh: the default group they were made under and this process's
+# group along each axis. dist.new_group is collective over the world, so
+# every rank makes every line's group, in the same order, once.
+_groups: Dict[Mesh, Tuple[object, Dict[str, Optional[object]]]] = {}
+
+
+def axis_group(mesh: Mesh, axis: str):
+    """This rank's process group along ``axis`` of ``mesh``, for the
+    ``group=`` of a collective: None (the default group) when the line is
+    the whole world, as on a mesh of one axis.
+
+    The first call for a mesh makes the groups of every axis above size 1
+    and must come at the same point on every rank; later calls read them.
+    The mesh must span the process group (``mesh.size`` ranks)."""
+    world = dist.group.WORLD
+    made = _groups.get(mesh)
+    if made is None or made[0] is not world:
+        if dist.get_world_size() != mesh.size:
+            raise ValueError(f"a mesh of {mesh.size} ranks in a process "
+                             f"group of {dist.get_world_size()}")
+        rank = dist.get_rank()
+        mine: Dict[str, Optional[object]] = {}
+        for ax, n in zip(mesh.axis_names, mesh.shape):
+            if n == 1:
+                continue
+            if n == mesh.size:
+                mine[ax] = None
+                continue
+            lines = sorted({tuple(axis_ranks(mesh, ax, r))
+                            for r in range(mesh.size)})
+            for line in lines:
+                g = dist.new_group(list(line))
+                if rank in line:
+                    mine[ax] = g
+        made = _groups[mesh] = (world, mine)
+    if mesh.axis_size(axis) == 1:
+        raise ValueError(f"axis {axis!r} of the mesh has size 1")
+    return made[1][axis]

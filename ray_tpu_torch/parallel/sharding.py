@@ -137,6 +137,20 @@ class ParamShardingRules:
                                  mesh)
 
 
+def keep_axes(spec: Spec, axes: Sequence[str]) -> Spec:
+    """``spec`` with only the mesh axes in ``axes`` (the rest replicated),
+    trailing replicated dims dropped."""
+    out = []
+    for entry in spec:
+        kept = tuple(a for a in ((entry,) if isinstance(entry, str)
+                                 else tuple(entry or ())) if a in axes)
+        out.append(None if not kept else kept[0] if len(kept) == 1
+                   else kept)
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
 def shard_index(spec: Spec, shape: Sequence[int], mesh: Mesh,
                 rank: int) -> Tuple[slice, ...]:
     """Rank ``rank``'s slice of an array of ``shape`` sharded by ``spec``.

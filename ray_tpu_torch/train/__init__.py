@@ -1,6 +1,7 @@
-"""ray_tpu_torch.train — the single-device training step (port of
-ray_tpu/train/step.py). The Trainer, session and checkpoint modules of
-ray_tpu.train belong to the runtime and are not ported yet."""
+"""ray_tpu_torch.train — the training step, on one device or sharded over
+a mesh (port of ray_tpu/train/step.py). The Trainer, session and
+checkpoint modules of ray_tpu.train belong to the runtime and are not
+ported yet."""
 
 from ray_tpu_torch.train.step import (
     TrainState,

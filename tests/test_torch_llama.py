@@ -17,6 +17,7 @@ from ray_tpu.models import llama as jllama
 from ray_tpu_torch.llm._internal import paged as tpaged
 from ray_tpu_torch.models import llama as tllama
 from ray_tpu_torch.models.convert import convert_params, unconvert_params
+from ray_tpu_torch.parallel.mesh import create_mesh
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -238,12 +239,24 @@ def test_config_presets_match_jax(preset):
             assert getattr(t, f.name) == getattr(j, f.name), f.name
 
 
-def test_unported_branches_raise():
-    cfg = tllama.LlamaConfig.tiny(vocab_size=32)
-    ring = tllama.LlamaModel(dataclasses.replace(cfg, attention_impl="ring"),
-                             device="cpu")
-    with pytest.raises(NotImplementedError):
-        ring(torch.zeros((1, 4), dtype=torch.long))
+def test_unported_branches_raise(tiny):
+    """attention_impl="ring" without a "seq" axis is plain attention, as in
+    the reference (ray_tpu/models/llama.py:207-214): the same logits as
+    the reference's ring model without a mesh, and as the port's
+    "reference" path exactly. A mesh with a "seq" axis above 1 raises until
+    ring attention is ported."""
+    japply, jparams, ring = _models(tiny, "ring")
+    _, _, plain = _models(tiny, "reference")
+    ids = np.random.default_rng(5).integers(0, 128, (2, 12), dtype=np.int32)
+    ref = japply({"params": jparams}, jnp.asarray(ids))
+    with torch.no_grad():
+        got = ring(torch.from_numpy(ids))
+        want = plain(torch.from_numpy(ids))
+    assert torch.equal(got, want)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **LOGIT_TOL)
+    mesh = create_mesh({"seq": 2}, devices=[torch.device("cpu")] * 2)
+    with pytest.raises(NotImplementedError, match="ring attention"):
+        tllama.LlamaModel(ring.cfg, device="meta", mesh=mesh, rank=0)
 
 
 def test_init_params_is_seeded():

@@ -194,7 +194,9 @@ for m in pkgutil.walk_packages(ray_tpu_torch.__path__, "ray_tpu_torch."):
     importlib.import_module(m.name)
 for m in ("ray_tpu_torch.train.step", "ray_tpu_torch.parallel.mesh",
           "ray_tpu_torch.parallel.sharding", "ray_tpu_torch.parallel.tp",
-          "ray_tpu_torch.llm._internal.tp_rank"):
+          "ray_tpu_torch.llm._internal.tp_rank",
+          "ray_tpu_torch.parallel.fsdp", "ray_tpu_torch.parallel.launch",
+          "ray_tpu_torch.entry"):
     assert m in sys.modules, m
 import chip_smoke
 bad = sorted(n for n in sys.modules

@@ -22,6 +22,7 @@ from ray_tpu.train import step as jstep
 from ray_tpu_torch.models import llama as tllama
 from ray_tpu_torch.models.convert import convert_params
 from ray_tpu_torch.ops import attention as tattn
+from ray_tpu_torch.parallel.mesh import create_mesh
 from ray_tpu_torch.train import step as tstep
 
 
@@ -246,14 +247,27 @@ def test_init_train_state_draws_seeded_weights():
 
 
 def test_mesh_and_mismatches_raise():
+    """As the reference: a mesh is accepted (one of a single device runs
+    the single-device step), and param_rules without a mesh are ignored.
+    A mesh the model was not built over, a foreign optimizer or state, and
+    a sample that is not token ids raise ValueError. (The sharded step
+    itself: tests/test_torch_train_sharded.py.)"""
     model = _torch_model("reference", _random_init())
     opt = tstep.adamw(model.parameters(), LR)
     ids = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        tstep.make_train_step(model, opt, mesh=object())
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        tstep.init_train_state(model, opt, ids, device="cpu",
-                               param_rules=object())
+    one = create_mesh({}, devices=[torch.device("cpu")])
+    state = tstep.init_train_state(model, opt, ids, device="cpu",
+                                   param_rules=tllama.LLAMA_SHARDING)
+    step = tstep.make_train_step(model, opt, mesh=one,
+                                 param_rules=tllama.LLAMA_SHARDING)
+    state, loss = step(state, ids, ids)
+    assert state.step == 1 and torch.isfinite(loss)
+    two = create_mesh({"data": 2}, devices=[torch.device("cpu")] * 2)
+    with pytest.raises(ValueError, match="LlamaModel"):
+        tstep.make_train_step(model, opt, mesh=two)
+    with pytest.raises(ValueError, match="LlamaModel"):
+        tstep.init_train_state(model, opt, ids, device="cpu", mesh=two)
+    opt = tstep.adamw(model.parameters(), LR)
     with pytest.raises(ValueError):
         tstep.init_train_state(model, tstep.adamw(
             [torch.nn.Parameter(torch.zeros(2))], LR), ids, device="cpu")

@@ -4,8 +4,10 @@ pytest file; run on a machine with a GPU):
     python3 tests/torch_gloo_cuda_probe.py
 
 Starts two rank processes on cuda:0, once with gloo and once with NCCL, and
-tries all_reduce, broadcast, all_gather and all_gather_into_tensor in f32,
-bf16, f16, int32 and int64. Rank 0 prints one line per backend: each
+tries all_reduce, broadcast, all_gather, all_gather_into_tensor,
+reduce_scatter_tensor and reduce_scatter in f32, bf16, f16, int32 and
+int64, and the same all_reduce and all_gather_into_tensor over a group
+made with new_group. Rank 0 prints one line per backend: each
 call's result, or the error it raised. NCCL refuses two ranks on one
 device; this is why tensor-parallel ranks that share a card take gloo
 (llm/_internal/tp.py).
@@ -29,6 +31,7 @@ def rank_main(rank, n, store, backend):
     dist.init_process_group(backend, store=dist.FileStore(store, n),
                             rank=rank, world_size=n)
     dev = torch.device("cuda", 0)
+    group = dist.new_group(list(range(n)))
     res = {}
     for dt in DTYPES:
         name = str(dt).split(".")[-1]
@@ -54,7 +57,34 @@ def rank_main(rank, n, store, backend):
                 out, torch.full((2,), rank, dtype=dt, device=dev))
             return out.float().tolist()
 
-        for fn in (all_reduce, broadcast, all_gather, all_gather_into_tensor):
+        def reduce_scatter_tensor(dt=dt):
+            out = torch.empty(2, dtype=dt, device=dev)
+            dist.reduce_scatter_tensor(out, torch.arange(
+                2 * n, dtype=dt, device=dev) + rank)
+            return out.float().tolist()
+
+        def reduce_scatter(dt=dt):
+            out = torch.empty(2, dtype=dt, device=dev)
+            dist.reduce_scatter(out, [torch.full((2,), r + rank, dtype=dt,
+                                                 device=dev)
+                                      for r in range(n)])
+            return out.float().tolist()
+
+        def group_all_reduce(dt=dt):
+            x = torch.full((5,), rank + 1, dtype=dt, device=dev)
+            dist.all_reduce(x, group=group)
+            return x.float().tolist()
+
+        def group_all_gather_into_tensor(dt=dt):
+            out = torch.empty(2 * n, dtype=dt, device=dev)
+            dist.all_gather_into_tensor(
+                out, torch.full((2,), rank, dtype=dt, device=dev),
+                group=group)
+            return out.float().tolist()
+
+        for fn in (all_reduce, broadcast, all_gather, all_gather_into_tensor,
+                   reduce_scatter_tensor, reduce_scatter, group_all_reduce,
+                   group_all_gather_into_tensor):
             try:
                 out = fn()
                 torch.cuda.synchronize()

@@ -346,6 +346,48 @@ def parallel_rows(rows):
                      "(the port at TP 1)", err(logits, logits_1), 1e-4))
 
 
+def sharded_train_rows(rows):
+    """tests/test_torch_train_sharded.py's runs: 3 steps on gloo CPU ranks
+    at each mesh against the port's single-device step, and at {"fsdp": 2,
+    "tensor": 2} against the reference's sharded step."""
+    import test_torch_train_sharded as T
+    from ray_tpu_torch.entry import full_params, train_job
+
+    jparams, sd = T.reference_init()
+    keys = [(s, "reference") for s in T.TWO] + [
+        (T.FOUR, i) for i in T.IMPLS] + [(T.TP4, "reference")]
+    results = {}
+    for part in (keys[:3], keys[3:]):
+        job = train_job([{"shape": s, "cfg": T._cfg(i, s), "ids": T._ids(),
+                          "steps": T.STEPS, "lr": T.LR, "state_dict": sd,
+                          "want_params": True} for s, i in part],
+                        device="cpu")
+        per_rank = job.results()
+        for j, key in enumerate(part):
+            results[repr(key[0]), key[1]] = [r[j] for r in per_rank]
+    single = {i: T._single(i, sd) for i in T.IMPLS}
+    jax_runs = {i: T._jax_sharded(i, jparams) for i in T.IMPLS}
+
+    def row(what, ref_name, res, losses, params):
+        loss = max(abs(a - b) / abs(b) for r in res
+                   for a, b in zip(r["losses"], losses))
+        got = full_params(res)
+        rows.append((f"train/step.py sharded, {what}, loss after 3 steps, "
+                     "relative", ref_name, loss, T.LOSS_RTOL))
+        rows.append((f"train/step.py sharded, {what}, weights after 3 "
+                     "steps", ref_name, max(err(got[n], params[n])
+                                            for n in params),
+                     T.PARAM_ATOL))
+
+    for shape, impl in keys:
+        row(f"{shape} ({impl}, gloo CPU ranks)", "(the port on one device)",
+            results[repr(shape), impl], *single[impl])
+    for impl in T.IMPLS:
+        row(f"{T.FOUR} ({impl})", "`make_train_step(mesh=, param_rules="
+            "LLAMA_SHARDING)`, 4 CPU devices",
+            results[repr(T.FOUR), impl], *jax_runs[impl])
+
+
 def main():
     rows = []
     rng = np.random.default_rng(0)
@@ -490,6 +532,7 @@ def main():
     quant_moe_rows(rows, jparams, sd)
     text_surface_rows(rows)
     parallel_rows(rows)
+    sharded_train_rows(rows)
 
     print("| Port module | JAX counterpart | max abs error | tolerance |")
     print("|---|---|---|---|")
