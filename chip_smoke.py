@@ -25,10 +25,15 @@ llm/_internal/tp.py) with two rank processes sharing this card over gloo:
 the tiny f32 model against TP 1, and Llama-3-8B (32 layers) through
 serve_8b's waves, K1 and K4 on each rank's local heads. Then sharded
 training (train/step.py with mesh=, parallel/fsdp.py, parallel/launch.py),
-its ranks sharing this card over gloo: dryrun_multigpu(4) and the tiny f32
+its ranks sharing this card over gloo: dryrun_multigpu(4) (ring attention
+over "seq", then a pipeline over "stage") and the tiny f32
 model at {"data": 2} against TP 1, then the Llama-3-8B widths cut to 2
 layers at {"tensor": 2} and {"fsdp": 2, "tensor": 2} against TP 1 at the
-same depth, K1, K2 and K3 on each rank's local heads. Each phase prints
+same depth, K1, K2 and K3 on each rank's local heads, and at {"seq": 2,
+"tensor": 2} with ring attention (parallel/ring.py; no K1-K3). Then
+ring attention alone at {"seq": 2} and {"seq": 4} (bf16 at the 8B
+attention widths, and f32) and pipeline_apply (parallel/pipeline.py) at
+{"stage": 2} and {"stage": 4}, each held against one device. Each phase prints
 one JSON line; the line before the last repeats the card's name and power
 limit from nvidia-smi, and the last line is
 
@@ -2057,14 +2062,15 @@ def mesh_launches_ok(results, want):
 
 
 def train_tiny_mesh_phase(dev):
-    """dryrun_multigpu(4) ({"tensor": 2, "fsdp": 2}, tiny, one step) with
-    its four ranks on this card; then the tiny f32 flash model at {"data":
+    """dryrun_multigpu(4) ({"seq": 2, "tensor": 2} with ring attention,
+    tiny, one step; then its pipeline at {"stage": 2, "data": 2}) with its
+    four ranks on this card; then the tiny f32 flash model at {"data":
     2} for 3 AdamW steps at lr 1e-3 on train_tiny's batch and seed, against
     the port's TP 1 on this card: each rank's losses, its step-1 gradients
     and the unsharded weights within the CPU limits (MESH_TINY_*), K1, K2
     and K3 exactly 2 a step on every rank (2 layers, no remat)."""
     from ray_tpu_torch.entry import dryrun_multigpu, full_params, \
-        train_on_ranks
+        mesh_shape_for, train_on_ranks
     from ray_tpu_torch.models.llama import LlamaConfig, LlamaModel
     from ray_tpu_torch.train import adamw, init_train_state, make_train_step
 
@@ -2116,7 +2122,8 @@ def train_tiny_mesh_phase(dev):
           and mesh_launches_ok(res, launches))
     check(ok, "tiny sharded training")
     emit({"phase": "train_tiny_mesh", "dryrun_multigpu_4_mesh":
-              {"tensor": 2, "fsdp": 2}, "dryrun_loss": dry,
+              mesh_shape_for(4), "dryrun_attention_impl": "ring",
+          "dryrun_pp_mesh": {"stage": 2, "data": 2}, "dryrun_loss": dry,
           "dryrun_s": dry_s, "mesh": {"data": 2}, "backend": "gloo",
           "ranks_s": ranks_s, "losses": [r["losses"] for r in res],
           "tp1_losses": losses, "loss_max_rel_err": loss_rel,
@@ -2131,23 +2138,25 @@ def train_tiny_mesh_phase(dev):
           "launches_expected": launches, "ok": ok})
 
 
-def train_8b_mesh_phase(dev, name, shape):
+def train_8b_mesh_phase(dev, name, shape, impl="flash"):
     """Training at the Llama-3-8B widths cut to MESH_8B_LAYERS layers (bf16
     compute over f32 parameters, remat, AdamW at lr 3e-4, train_8b's batch
-    of 2 x 2048 seeded ids, seed 0) over ``shape``, its ranks sharing this
-    card over gloo, against TP 1 at the same depth run first in this
-    process: each step's loss, and the first step's gradient of
-    MESH_GRADS' rank slices by relative Frobenius error. Each rank's K1
-    (2 a layer and step, remat), K2 and K3 (1 each) are exact; its peak
-    memory and step seconds are recorded (gloo through host memory: no
-    sharded-training speed)."""
+    of 2 x 2048 seeded ids, seed 0) over ``shape`` with attention ``impl``,
+    its ranks sharing this card over gloo, against TP 1 of the same config
+    at the same depth run first in this process: each step's loss, and the
+    first step's gradient of MESH_GRADS' rank slices by relative Frobenius
+    error. Each rank's launches are exact: under "flash" K1 2 a layer and
+    step (remat), K2 and K3 1 each; under "ring" (a "seq" axis: ring
+    attention, plain PyTorch as in the reference) none, and TP 1 runs plain
+    attention. Each rank's peak memory and step seconds are recorded (gloo
+    through host memory: no sharded-training speed)."""
     from ray_tpu_torch.entry import train_on_ranks
     from ray_tpu_torch.models.llama import LlamaConfig, LlamaModel
     from ray_tpu_torch.train import adamw, init_train_state, make_train_step
 
     B, S, lr, steps, seed = 2, 2048, 3e-4, 3, 0
     cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
-                              num_layers=MESH_8B_LAYERS)
+                              num_layers=MESH_8B_LAYERS, attention_impl=impl)
     ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S))
     model = LlamaModel(cfg, device=dev, param_dtype=torch.float32)
     opt = adamw(model.parameters(), lr)
@@ -2183,14 +2192,17 @@ def train_8b_mesh_phase(dev, name, shape):
             grad_err[f"rank{r['rank']}:{n}"] = (
                 torch.linalg.norm(got - want) / torch.linalg.norm(want)).item()
     L = cfg.num_layers
-    launches = {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
-                "flash_bwd_dkv": L * steps}
+    per = int(impl == "flash")
+    launches = {"flash_fwd": 2 * L * steps * per,
+                "flash_bwd_dq": L * steps * per,
+                "flash_bwd_dkv": L * steps * per}
     finite = all(math.isfinite(x) for r in res for x in r["losses"])
     ok = (finite and loss_err <= MESH_8B_LOSS_TOL
           and max(grad_err.values()) <= MESH_8B_GRAD_RTOL
           and mesh_launches_ok(res, launches))
     check(ok, name)
-    row = {"phase": name, "mesh": shape, "backend": "gloo", "layers": L,
+    row = {"phase": name, "mesh": shape, "attention_impl": impl,
+           "backend": "gloo", "layers": L,
            "of_layers": 32, "dtype": "bfloat16", "param_dtype": "float32",
            "remat": cfg.remat, "batch": B, "seq_len": S, "lr": lr,
            "rank_heads": [[r["heads"], r["kv_heads"]] for r in res],
@@ -2207,7 +2219,196 @@ def train_8b_mesh_phase(dev, name, shape):
     emit(row)
     return {"rank_launches": [r["launches"] for r in res],
             "local_heads": (res[0]["heads"], res[0]["kv_heads"]),
-            "rank_batch": B // (shape.get("data", 1) * shape.get("fsdp", 1))}
+            "rank_batch": B // (shape.get("data", 1) * shape.get("fsdp", 1)),
+            "kernels": impl == "flash"}
+
+
+# Ring attention (parallel/ring.py) and the pipeline (parallel/pipeline.py),
+# each rank a process on this card over gloo, against one device.
+# Ring, bf16 causal at the 8B attention widths (global [1, 4096, 32/8,
+# 128]): both sides compute in f32 from the same bf16 inputs and round the
+# output to bf16 once, so they differ by the order of f32 sums and one bf16
+# ulp of |out| (< 2^-8 for |out| < 1): the output is held at RING_BF16_ATOL
+# (max abs). The q/k/v gradients of out.float().sum() are f32 sums of
+# products of bf16-rounded outputs' cotangents: held by relative Frobenius
+# error at RING_BF16_GRAD_RTOL. One f32 full case ([2, 512, 8/2, 64], TF32
+# off) is held at the CPU tests' limits: 2e-5 for the output, 5e-4 for the
+# gradients (allclose atol = rtol).
+RING_BF16 = {"b": 1, "s": 4096, "h": 32, "hk": 8, "d": 128,
+             "dtype": torch.bfloat16, "seed": 40}
+RING_F32 = {"b": 2, "s": 512, "h": 8, "hk": 2, "d": 64,
+            "dtype": torch.float32, "seed": 41}
+RING_BF16_ATOL = 2e-2
+RING_BF16_GRAD_RTOL = 5e-2
+RING_F32_TOL = 2e-5
+RING_F32_GRAD_TOL = 5e-4
+# Pipeline: tanh(x @ w + b) at h 4096 in f32 (TF32 off), M 8 microbatches
+# of [2, 512]; the output against the sequential composition on one device
+# within PIPE_TOL (allclose atol = rtol), each stage's w gradient within
+# PIPE_GRAD_RTOL relative Frobenius.
+PIPE = {"M": 8, "mb": (2, 512), "h": 4096}
+PIPE_TOL = 1e-5
+PIPE_GRAD_RTOL = 1e-4
+PARALLEL_REPS = 3
+
+
+def rel_fro(got, want):
+    """||got - want|| / ||want||, Frobenius, in f32."""
+    got, want = got.float(), want.float()
+    return (torch.linalg.norm(got - want) / torch.linalg.norm(want)).item()
+
+
+def assemble(results, key, shape):
+    """The global array from every rank's block of ``key`` (at ``index``,
+    or at ``kv_index`` for dk and dv)."""
+    full = torch.zeros(shape, dtype=torch.float32)
+    at = "kv_index" if key in ("dk", "dv") else "index"
+    for r in results:
+        full[r[at]] = torch.from_numpy(r[key])
+    return full
+
+
+def ring_reference(spec, causal, dev):
+    """attention_reference on the card on ring_inputs(**spec): its output
+    and the q/k/v gradients of out.float().sum(), on the host."""
+    from ray_tpu_torch.entry import ring_inputs
+    from ray_tpu_torch.ops.attention import attention_reference
+
+    qkv = [t.requires_grad_() for t in ring_inputs(**spec, device=dev)]
+    out = attention_reference(*qkv, causal=causal)
+    out.float().sum().backward()
+    return [out.detach().float().cpu()] + [t.grad.float().cpu()
+                                           for t in qkv]
+
+
+def pipeline_reference(S, dev):
+    """The sequential composition of S tanh stages on pipeline_inputs (seed
+    S) on the card: its output and ws/bs/xs gradients of its sum, on the
+    host, and its forward's ms."""
+    from ray_tpu_torch.entry import pipeline_inputs, tanh_stage
+
+    ws, bs, xs = [t.requires_grad_() for t in pipeline_inputs(
+        S, PIPE["M"], PIPE["mb"], PIPE["h"], S, dev)]
+
+    def fwd():
+        y = xs
+        for s in range(S):
+            y = tanh_stage((ws[s], bs[s]), y)
+        return y
+
+    y = fwd()
+    y.sum().backward()
+    with torch.no_grad():
+        ms = cuda_ms(fwd, [()], iters=5, warmup=1)
+    return ([y.detach().cpu()] + [t.grad.cpu() for t in (ws, bs, xs)], ms)
+
+
+def parallel_checks_phase(dev, attn):
+    """ring_check and pipeline_check. For n in 2 and 4, one job of n ranks
+    on this card over gloo runs ring_attention at {"seq": n} (RING_BF16
+    causal, RING_F32 full) and pipeline_apply at {"stage": n}; each is held
+    against one device in this process (limits above). Every rank times
+    its calls, all ranks together (PARALLEL_REPS each; ranks sharing one
+    card over gloo: no SP or PP speed); K1 at the bf16 case's whole
+    sequence, and the sequential composition, are timed beside them as
+    yardsticks."""
+    from ray_tpu_torch.entry import ring_inputs, train_job
+
+    refs = {"bf16": ring_reference(RING_BF16, True, dev),
+            "f32": ring_reference(RING_F32, False, dev)}
+    q, k, v = ring_inputs(**RING_BF16, device=dev)
+    k1_ms = cuda_ms(lambda q, k, v: attn.flash_fwd_kernel(q, k, v,
+                                                          causal=True),
+                    copies((q, k, v), nbytes(q, k, v) * 2))
+    del q, k, v
+    pipe = {S: pipeline_reference(S, dev) for S in (2, 4)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    for n in (2, 4):
+        t0 = time.perf_counter()
+        runs = [{"fn": "ring", "shape": {"seq": n}, "spec": RING_BF16,
+                 "causal": True, "reps": PARALLEL_REPS},
+                {"fn": "ring", "shape": {"seq": n}, "spec": RING_F32,
+                 "causal": False, "reps": PARALLEL_REPS},
+                {"fn": "pipeline", "shape": {"stage": n},
+                 "spec": {"S": n, "seed": n, **PIPE},
+                 "reps": PARALLEL_REPS}]
+        at = time.time()
+        res = train_job(runs, device=dev).results()
+        job_s = time.perf_counter() - t0
+        # Per rank: seconds from the job's start to its first run, each
+        # run's seconds, and from its last run's end to the job's end.
+        timeline = [{"start_s": r[0]["run_at"] - at,
+                     "run_s": [x["run_s"] for x in r],
+                     "after_s": at + job_s - r[-1]["run_at"]
+                     - r[-1]["run_s"]} for r in res]
+        for i, (case, spec, causal) in enumerate(
+                (("bf16", RING_BF16, True), ("f32", RING_F32, False))):
+            per = [r[i] for r in res]
+            want = refs[case]
+            shapes = [want[0].shape, want[0].shape, want[2].shape,
+                      want[3].shape]
+            got = [assemble(per, key, sh)
+                   for key, sh in zip(("out", "dq", "dk", "dv"), shapes)]
+            finite = all(bool(torch.isfinite(g).all()) for g in got)
+            out_err = (got[0] - want[0]).abs().max().item()
+            if case == "bf16":
+                grad = {f"d{x}": rel_fro(g, w)
+                        for x, g, w in zip("qkv", got[1:], want[1:])}
+                ok = (finite and out_err <= RING_BF16_ATOL
+                      and max(grad.values()) <= RING_BF16_GRAD_RTOL)
+                lims = {"atol": RING_BF16_ATOL,
+                        "grad_rel_frobenius": grad,
+                        "grad_rtol": RING_BF16_GRAD_RTOL}
+            else:
+                used = limit_used(got[0], want[0], RING_F32_TOL,
+                                  RING_F32_TOL)
+                grad = {f"d{x}": limit_used(g, w, RING_F32_GRAD_TOL,
+                                            RING_F32_GRAD_TOL)
+                        for x, g, w in zip("qkv", got[1:], want[1:])}
+                ok = finite and used <= 1 and max(grad.values()) <= 1
+                lims = {"atol": RING_F32_TOL, "rtol": RING_F32_TOL,
+                        "limit_used": used, "grad_tol": RING_F32_GRAD_TOL,
+                        "grad_limit_used": grad}
+            check(ok, f"ring_check seq {n} {case}")
+            row = {"phase": "ring_check", "mesh": {"seq": n},
+                   "backend": "gloo", "case": case, "causal": causal,
+                   "shape": [spec[x] for x in ("b", "s", "h", "hk", "d")],
+                   "rank_block_seq": spec["s"] // n, "max_abs_err": out_err,
+                   **lims,
+                   "rank_fwd_ms_ranks_sharing_one_card_over_gloo":
+                       [r["fwd_ms"] for r in per],
+                   "rank_fwd_bwd_ms_ranks_sharing_one_card_over_gloo":
+                       [r["fwd_bwd_ms"] for r in per], "job_s": job_s,
+                   "job_timeline": timeline,
+                   "ok": ok}
+            if case == "bf16":
+                row["k1_whole_sequence_ms_yardstick"] = k1_ms
+            emit(row)
+        per = [r[2] for r in res]
+        want, seq_ms = pipe[n]
+        used = max(limit_used(torch.from_numpy(r["out"]), want[0], PIPE_TOL,
+                              PIPE_TOL) for r in per)
+        dw = {f"stage{r['stage']}": rel_fro(torch.from_numpy(r["dw"]),
+                                            want[1][r["stage"]])
+              for r in per}
+        db = {f"stage{r['stage']}": rel_fro(torch.from_numpy(r["db"]),
+                                            want[2][r["stage"]])
+              for r in per}
+        dx = rel_fro(torch.from_numpy(per[0]["dx"]), want[3])
+        finite = all(bool(np.isfinite(r["out"]).all()) for r in per)
+        ok = finite and used <= 1 and max(dw.values()) <= PIPE_GRAD_RTOL
+        check(ok, f"pipeline_check stage {n}")
+        emit({"phase": "pipeline_check", "mesh": {"stage": n},
+              "backend": "gloo", "stage_fn": "tanh(x @ w + b)",
+              "dtype": "float32", "microbatches": PIPE["M"],
+              "microbatch": list(PIPE["mb"]), "h": PIPE["h"],
+              "atol": PIPE_TOL, "rtol": PIPE_TOL, "limit_used": used,
+              "dw_rel_frobenius": dw, "dw_rtol": PIPE_GRAD_RTOL,
+              "db_rel_frobenius": db, "dx_rel_frobenius": dx,
+              "rank_fwd_ms_ranks_sharing_one_card_over_gloo":
+                  [r["fwd_ms"] for r in per],
+              "sequential_fwd_ms_yardstick": seq_ms, "ok": ok})
 
 
 # ---------------------------------------------------------------------------
@@ -2346,13 +2547,17 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     train_tiny_mesh_phase(dev)
-    meshes = {"train_8b_tp2": {"tensor": 2},
-              "train_8b_fsdp2_tp2": {"fsdp": 2, "tensor": 2}}
+    meshes = {"train_8b_tp2": ({"tensor": 2}, "flash"),
+              "train_8b_fsdp2_tp2": ({"fsdp": 2, "tensor": 2}, "flash"),
+              "train_8b_sp2_tp2": ({"seq": 2, "tensor": 2}, "ring")}
     sharded = {}
-    for name, shape in meshes.items():
-        sharded[name] = train_8b_mesh_phase(dev, name, shape)
+    for name, (shape, impl) in meshes.items():
+        sharded[name] = train_8b_mesh_phase(dev, name, shape, impl)
         gc.collect()
         torch.cuda.empty_cache()
+    parallel_checks_phase(dev, attn)
+    gc.collect()
+    torch.cuda.empty_cache()
     # The int8 and MoE serving paths give K1 and K4 serve_8b's shapes (the
     # same heads, batch, prompt and answer), so the main-path checks below
     # cover them.
@@ -2386,8 +2591,9 @@ def main():
             [tp["decode_seq_len"]] * 8, 30, dev, H=16, HK=4)
     # Each sharded-training rank's local heads and rows (16 over 4 at TP
     # 2; 2 rows at TP 2, 1 under FSDP 2): its forward, remat recompute and
-    # backward.
-    for i, (name, r) in enumerate(sharded.items()):
+    # backward. Ring attention (train_8b_sp2_tp2) launches none of K1-K3.
+    for i, (name, r) in enumerate((n, r) for n, r in sharded.items()
+                                  if r["kernels"]):
         h, hk = r["local_heads"]
         k1_case(attn, f"{name}_path_forward", r["rank_batch"], 2048, h, hk,
                 128, torch.bfloat16, True, 31 + 2 * i, dev, time_it=i == 0)

@@ -1,11 +1,15 @@
 """Entry points of the port (counterparts of __graft_entry__):
 
 - entry(): the cacheless Llama forward, on one device;
-- dryrun_multigpu(n): one sharded training step over an n-rank mesh, in n
-  rank processes (``dryrun_multichip``'s training part);
+- dryrun_multigpu(n): one sharded training step over an n-rank mesh (ring
+  attention over its "seq" axis), then a pipeline over a "stage" axis, in n
+  rank processes (``dryrun_multichip``'s training and PP parts);
 - train_on_ranks(): the sharded train step run for a few steps in one rank
   process per mesh device, with what each rank saw (its losses, shards,
-  gradients, kernel launches, peak memory).
+  gradients, kernel launches, peak memory);
+- train_job(): rank processes that run several such runs in turn, each a
+  train step (``train_rank``), ring attention (``ring_rank``) or a
+  pipeline (``pipeline_rank``) over its own mesh.
 """
 
 from __future__ import annotations
@@ -113,13 +117,156 @@ def train_rank(mesh: Mesh, rank: int, cfg: LlamaConfig, ids: np.ndarray,
     return out
 
 
+def _tensor(x, dev) -> torch.Tensor:
+    """A numpy array (or a tensor) as a tensor on ``dev``."""
+    t = x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
+    return t.to(dev)
+
+
+def ring_inputs(b: int, s: int, h: int, hk: int, d: int, dtype, seed: int,
+                device) -> List[torch.Tensor]:
+    """Global q [b, s, h, d], k and v [b, s, hk, d], standard normal in
+    ``dtype``, drawn from ``seed`` on ``device`` (each rank of a ring run
+    draws the same and keeps its block)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=device,
+                        dtype=torch.float32).to(dtype)
+            for shape in ((b, s, h, d), (b, s, hk, d), (b, s, hk, d))]
+
+
+def _timed_ms(fn, dev, reps: int) -> List[float]:
+    """Host milliseconds of ``fn()`` after a barrier over every rank,
+    ``reps`` times, each ended by a device sync."""
+    import torch.distributed as dist
+
+    out = []
+    for _ in range(reps):
+        dist.barrier()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        out.append((time.perf_counter() - t) * 1e3)
+    return out
+
+
+def ring_rank(mesh: Mesh, rank: int, qkv=None, spec=None, causal=True,
+              reps: int = 0) -> Dict[str, Any]:
+    """One rank of a ring-attention run: ``ring_attention`` on the rank's
+    blocks (``block_index``) of the global q, k, v, given as ``qkv``
+    (three arrays) or drawn by ``ring_inputs(**spec)``, and the gradients
+    of ``out.float().sum()`` with respect to its q, k and v blocks. Returns
+    them as float32 numpy arrays with the rank's index into the global q
+    (``index``) and k/v (``kv_index``); with ``reps``, the milliseconds of
+    the forward and of forward and backward, every rank timing together."""
+    from ray_tpu_torch.parallel.ring import block_index, ring_attention
+
+    dev = mesh.devices[rank]
+    if qkv is None:
+        qkv = ring_inputs(**spec, device=dev)
+    full = [_tensor(x, dev) for x in qkv]
+    index = [block_index(x.shape, mesh, rank) for x in full]
+    q, k, v = [x[i].clone().requires_grad_() for x, i in zip(full, index)]
+
+    def ring():
+        return ring_attention(q, k, v, mesh=mesh, causal=causal, rank=rank)
+
+    out = ring()
+    grads = torch.autograd.grad(out.float().sum(), (q, k, v))
+    res = {"rank": rank, "out": _numpy(out),
+           **{f"d{n}": _numpy(g) for n, g in zip("qkv", grads)},
+           "index": index[0], "kv_index": index[1]}
+    if reps:
+        def fwd():
+            with torch.no_grad():
+                ring()
+
+        def fwd_bwd():
+            torch.autograd.grad(ring().float().sum(), (q, k, v))
+
+        res["fwd_ms"] = _timed_ms(fwd, dev, reps)
+        res["fwd_bwd_ms"] = _timed_ms(fwd_bwd, dev, reps)
+    return res
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A float32 numpy copy of a tensor."""
+    return t.detach().float().cpu().numpy().copy()
+
+
+def tanh_stage(params, x):
+    """The reference dry run's pipeline stage: tanh(x @ w + b)."""
+    w, b = params
+    return torch.tanh(x @ w + b)
+
+
+def pipeline_inputs(S: int, M: int, mb, h: int, seed: int, device
+                    ) -> List[torch.Tensor]:
+    """Stage weights ws [S, h, h] (std 1/sqrt(h)), biases bs [S, h] (std
+    0.1) and microbatches xs [M, *mb, h] (standard normal), f32, drawn from
+    ``seed`` on ``device``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    mb = (mb,) if isinstance(mb, int) else tuple(mb)
+    draw = lambda *shape: torch.randn(shape, generator=g, device=device)
+    return [draw(S, h, h) / math.sqrt(h), draw(S, h) * 0.1,
+            draw(M, *mb, h)]
+
+
+def pipeline_rank(mesh: Mesh, rank: int, inputs=None, spec=None,
+                  grads: bool = True, reps: int = 0) -> Dict[str, Any]:
+    """One rank of a pipeline run: ``pipeline_apply(tanh_stage, (ws, bs),
+    xs)`` over the mesh's "stage" axis, on ``inputs`` (ws, bs, xs arrays)
+    or ``pipeline_inputs(**spec)``, and with ``grads`` the gradients of
+    ``out.sum()``: the rank's stage slice of ws and bs and, on stage 0,
+    xs's. Returns the rank's whole output and those as numpy arrays; with
+    ``reps``, the milliseconds of the forward, every rank timing
+    together."""
+    from ray_tpu_torch.parallel.pipeline import pipeline_apply
+
+    dev = mesh.devices[rank]
+    if inputs is None:
+        inputs = pipeline_inputs(**spec, device=dev)
+    ws, bs, xs = [_tensor(x, dev).requires_grad_(grads) for x in inputs]
+    out = pipeline_apply(tanh_stage, (ws, bs), xs, mesh=mesh, rank=rank)
+    stage = mesh.coords(rank)["stage"]
+    res = {"rank": rank, "stage": stage, "out": _numpy(out)}
+    if grads:
+        dw, db, dx = torch.autograd.grad(out.sum(), (ws, bs, xs))
+        res["dw"], res["db"] = _numpy(dw[stage]), _numpy(db[stage])
+        res["dx"] = _numpy(dx) if stage == 0 else None
+    if reps:
+        def fwd():
+            with torch.no_grad():
+                pipeline_apply(tanh_stage, (ws, bs), xs, mesh=mesh,
+                               rank=rank)
+
+        res["fwd_ms"] = _timed_ms(fwd, dev, reps)
+    return res
+
+
+# What a run of train_job runs, by its "fn".
+RUNS = {"train": train_rank, "ring": ring_rank, "pipeline": pipeline_rank}
+
+
 def train_runs(mesh: Mesh, rank: int,
-               runs: Sequence[Dict[str, Any]]) -> List[Dict[str, Any]]:
-    """``train_rank`` for each run in turn (its arguments, with its mesh
-    "shape" over ``mesh``'s devices), in one rank process."""
-    return [train_rank(create_mesh(run["shape"], devices=mesh.devices), rank,
-                       **{k: v for k, v in run.items() if k != "shape"})
-            for run in runs]
+               runs: Sequence[Dict[str, Any]]) -> List[Any]:
+    """For each run in turn, in one rank process: ``RUNS[run["fn"]]``
+    (``train_rank`` without one) with the run's other arguments, over its
+    mesh "shape" on ``mesh``'s devices. Each result (a dict) also holds
+    the run's start as a Unix time (``run_at``) and its seconds
+    (``run_s``)."""
+    out = []
+    for run in runs:
+        at = time.time()
+        t = time.perf_counter()
+        res = RUNS[run.get("fn", "train")](
+            create_mesh(run["shape"], devices=mesh.devices), rank,
+            **{k: v for k, v in run.items() if k not in ("shape", "fn")})
+        res.update(run_at=at, run_s=time.perf_counter() - t)
+        out.append(res)
+    return out
 
 
 def train_job(runs: Sequence[Dict[str, Any]], *, device=None,
@@ -127,8 +274,8 @@ def train_job(runs: Sequence[Dict[str, Any]], *, device=None,
     """Start one rank process per device of the runs' meshes (all of one
     size, all on ``device``, the card unless named: ranks that share a card
     take gloo unless ``backend`` names another), each running
-    ``train_runs``; the job's ``results()`` are, per rank, one
-    ``train_rank`` result per run."""
+    ``train_runs``; the job's ``results()`` are, per rank, one result per
+    run (``train_rank``'s, ``ring_rank``'s or ``pipeline_rank``'s)."""
     from ray_tpu_torch.parallel.launch import RankJob
 
     device = resolve_device(device)
@@ -174,12 +321,11 @@ def full_params(results: Sequence[Dict[str, Any]]) -> Dict[str, np.ndarray]:
 
 
 def mesh_shape_for(n: int) -> Dict[str, int]:
-    """``__graft_entry__._mesh_shape_for``'s factoring of n devices without
-    its "seq" axis (ring attention is not ported yet): "tensor" 2, then
-    "fsdp" 2, the rest on "data"."""
+    """``__graft_entry__._mesh_shape_for``'s factoring of n devices: "seq"
+    2, then "tensor" 2, then "fsdp" 2, as n allows, the rest on "data"."""
     shape = {}
     rem = n
-    for axis in ("tensor", "fsdp"):
+    for axis in ("seq", "tensor", "fsdp"):
         if rem % 2 == 0:
             shape[axis] = 2
             rem //= 2
@@ -189,12 +335,20 @@ def mesh_shape_for(n: int) -> Dict[str, int]:
 
 
 def dryrun_multigpu(n: int, device=None) -> float:
-    """One sharded training step over an n-rank mesh (``mesh_shape_for``),
-    each rank a process on ``device`` (the card unless named): the tiny
-    config, a batch of max(4, 2n) × 128 seeded ids, AdamW at 1e-3, weights
-    by LLAMA_SHARDING. Raises unless the loss is finite; returns it."""
-    cfg = LlamaConfig.tiny()
+    """``dryrun_multichip``'s training and PP parts, each rank a process on
+    ``device`` (the card unless named). One sharded training step over an
+    n-rank mesh (``mesh_shape_for``; ring attention where its "seq" axis is
+    above 1): the tiny config, a batch of max(4, 2n) × 128 seeded ids,
+    AdamW at 1e-3, weights by LLAMA_SHARDING. Then, for an even n, on a
+    rank job of its own, ``pipeline_apply`` of tanh(x @ w + b) over
+    {"stage": 2, "data": n/2}: h 16, ws 0.1, bs 0, xs ones [4, 2, 16].
+    Raises unless the loss is finite and the same on every rank and the
+    pipeline's output has xs's shape; returns the loss. The EP part
+    (expert parallelism) is not ported yet."""
     shape = mesh_shape_for(n)
+    cfg = dataclasses.replace(
+        LlamaConfig.tiny(),
+        attention_impl="ring" if shape.get("seq", 1) > 1 else "reference")
     ids = np.random.default_rng(1).integers(0, cfg.vocab_size,
                                             (max(4, 2 * n), 128))
     losses = [r["losses"][0] for r in train_on_ranks(
@@ -203,4 +357,17 @@ def dryrun_multigpu(n: int, device=None) -> float:
     if not (math.isfinite(loss) and loss < 1e9 and len(set(losses)) == 1):
         raise RuntimeError(f"dryrun_multigpu({n}): bad losses {losses}")
     print(f"dryrun_multigpu({n}): mesh={shape} loss={loss:.4f}")
+    if n % 2 == 0:
+        h = 16
+        inputs = [np.full((2, h, h), 0.1, np.float32),
+                  np.zeros((2, h), np.float32),
+                  np.ones((4, 2, h), np.float32)]
+        pp = {"stage": 2, "data": n // 2}
+        job = train_job([{"fn": "pipeline", "shape": pp, "inputs": inputs,
+                          "grads": False}], device=device)
+        shapes = {r[0]["out"].shape for r in job.results()}
+        if shapes != {inputs[2].shape}:
+            raise RuntimeError(f"dryrun_multigpu({n}): pipeline output "
+                               f"shapes {shapes}, want {inputs[2].shape}")
+        print(f"dryrun_multigpu({n}): PP mesh {{'stage': 2}} ok")
     return loss

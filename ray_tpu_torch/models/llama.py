@@ -34,15 +34,20 @@ gathered). A row-parallel partial is all-reduced in float32
 their gradient rules, so the shard trains. The mesh may also have "data"
 and "fsdp" axes (sharded training, train/step.py): ``place_params`` then
 keeps each parameter's part of its "fsdp" dim, gathered at its use
-(parallel/fsdp.py). The rank runs inside a process group of ``mesh.size``
-processes (llm/_internal/tp.py, parallel/launch.py).
+(parallel/fsdp.py). A "seq" axis of size n splits the sequence: the rank
+holds tokens [c·S/n, (c+1)·S/n) at its coordinate c, rotates them by those
+global positions, and attends by ring attention over the axis
+(parallel/ring.py; ``attention_impl="ring"``, training only). A "stage"
+axis holds replicas: the reference's model does not use it. The rank runs
+inside a process group of ``mesh.size`` processes (llm/_internal/tp.py,
+parallel/launch.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -81,8 +86,8 @@ class LlamaConfig:
     rope_theta: float = 500_000.0
     rms_norm_eps: float = 1e-5
     dtype: Any = torch.bfloat16
-    # "flash" (K1 on the card), "reference", or "ring" (plain attention until
-    # ring attention over a "seq" axis is ported)
+    # "flash" (K1 on the card), "reference", or "ring" (ring attention over
+    # the mesh's "seq" axis; plain attention without one)
     attention_impl: str = "flash"
     # Activation checkpointing for training; inference ignores it.
     remat: bool = True
@@ -130,8 +135,8 @@ LLAMA_SHARDING = ParamShardingRules([
 ])
 
 
-# Mesh axes a model may have above size 1: the rest are not ported yet.
-MODEL_AXES = ("data", "fsdp", "tensor")
+# Mesh axes a model may have above size 1: "expert" is not ported yet.
+MODEL_AXES = ("data", "fsdp", "stage", "seq", "tensor")
 
 
 def mesh_rank(mesh: Optional[Mesh], rank: Optional[int] = None) -> int:
@@ -148,8 +153,8 @@ def tensor_parallel(mesh: Optional[Mesh], rank: Optional[int] = None
                     ) -> Optional[TensorParallel]:
     """The TP rank of mesh rank ``rank`` (None for no mesh or a tensor axis
     of 1). ``rank`` defaults to this process's rank in its process group.
-    A "seq", "stage" or "expert" axis above 1 raises: ring attention, the
-    pipeline and expert parallelism are not ported yet."""
+    An "expert" axis above 1 raises: expert parallelism is not ported
+    yet."""
     if mesh is None:
         return None
     other = {ax: n for ax, n in mesh_shape(mesh).items()
@@ -157,9 +162,8 @@ def tensor_parallel(mesh: Optional[Mesh], rank: Optional[int] = None
     if other:
         raise NotImplementedError(
             f"mesh axes {other} are not ported: a model's mesh takes "
-            f"{MODEL_AXES} (tensor parallelism and sharded training); ring "
-            "attention (\"seq\"), the pipeline (\"stage\") and expert "
-            "parallelism (\"expert\") come in later slices")
+            f"{MODEL_AXES}; expert parallelism (\"expert\") comes in the "
+            "next slice")
     n = mesh.axis_size("tensor")
     if n == 1:
         return None
@@ -294,13 +298,17 @@ class Attention(nn.Module):
     1/N, or all of them when N does not divide them). The rank's query
     heads read the kv heads [kv0, kv1) of those it holds, a whole GQA group
     each; a split of heads that gives its query heads unequal groups
-    raises."""
+    raises. With ``ring`` (the mesh and mesh rank of a model whose "seq"
+    axis is above 1), the cacheless forward is ring attention over that
+    axis."""
 
     def __init__(self, cfg: LlamaConfig, device=None, param_dtype=None,
-                 tp: Optional[TensorParallel] = None):
+                 tp: Optional[TensorParallel] = None,
+                 ring: Optional[Tuple[Mesh, int]] = None):
         super().__init__()
         self.cfg = cfg
         self.tp = tp
+        self.ring = ring
         h, hk, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         h0, h1 = tp.part(h) if tp else (0, h)
         k0, k1 = tp.part(hk) if tp else (0, hk)
@@ -396,10 +404,15 @@ class Attention(nn.Module):
                                     k_ids[None, :] <= q_pos[:, None])
             return o_proj(out), (ck, cv)
 
-        # "ring" without a "seq" axis (a mesh with one above 1 raises at
-        # construction) is plain attention, as in the reference.
+        # "ring" without a "seq" axis is plain attention, as in the
+        # reference.
         k, v = k[:, :, kv], v[:, :, kv]
-        if cfg.attention_impl == "flash":
+        if self.ring is not None:
+            from ray_tpu_torch.parallel.ring import ring_attention
+
+            mesh, rank = self.ring
+            out = ring_attention(q, k, v, mesh=mesh, causal=True, rank=rank)
+        elif cfg.attention_impl == "flash":
             out = flash_attention(q, k, v, causal=True)
         else:
             out = attention_reference(q, k, v, causal=True)
@@ -432,11 +445,12 @@ class Mlp(nn.Module):
 
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None, param_dtype=None,
-                 tp: Optional[TensorParallel] = None):
+                 tp: Optional[TensorParallel] = None,
+                 ring: Optional[Tuple[Mesh, int]] = None):
         super().__init__()
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
                                        cfg.dtype, device)
-        self.self_attn = Attention(cfg, device, param_dtype, tp)
+        self.self_attn = Attention(cfg, device, param_dtype, tp, ring)
         self.post_attention_layernorm = RMSNorm(
             cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype, device)
         if cfg.num_experts > 0:
@@ -475,8 +489,10 @@ class LlamaModel(nn.Module):
     ``mesh`` builds mesh rank ``rank``'s shard (default: this process's
     rank in its process group, which the forward's collectives run over):
     its "tensor" part at construction, its "fsdp" part by ``place_params``.
-    ``specs`` holds each parameter's spec on the mesh as it is placed. MoE
-    layers are not ported under TP or FSDP (raises)."""
+    ``specs`` holds each parameter's spec on the mesh as it is placed. A
+    "seq" axis above 1 needs ``attention_impl="ring"`` and runs the
+    cacheless forward only; MoE layers are not ported under TP, FSDP or a
+    "seq" axis (each raises)."""
 
     def __init__(self, cfg: LlamaConfig, device=None, param_dtype=None,
                  mesh: Optional[Mesh] = None, rank: Optional[int] = None):
@@ -488,17 +504,30 @@ class LlamaModel(nn.Module):
         self.rank = mesh_rank(mesh, rank)
         self.tp = tp = tensor_parallel(mesh, self.rank)
         self.fsdp = fsdp_of(mesh, self.rank)
-        if (tp is not None or self.fsdp is not None) and cfg.num_experts > 0:
+        # (size, this rank's coordinate) of the "seq" axis.
+        self.seq = (1, 0) if mesh is None else (
+            mesh.axis_size("seq"), mesh.coords(self.rank)["seq"])
+        ring = None
+        if self.seq[0] > 1:
+            if cfg.attention_impl != "ring":
+                raise NotImplementedError(
+                    f"a \"seq\" axis of {self.seq[0]} splits the sequence, "
+                    f"which only attention_impl=\"ring\" attends over; got "
+                    f"{cfg.attention_impl!r}")
+            ring = (mesh, self.rank)
+        if ((tp is not None or self.fsdp is not None or ring is not None)
+                and cfg.num_experts > 0):
             raise NotImplementedError(
-                "MoE layers under tensor parallelism or FSDP are not ported "
-                "(expert parallelism comes in a later slice)")
+                "MoE layers under tensor parallelism, FSDP or a \"seq\" axis "
+                "are not ported (expert parallelism comes in the next "
+                "slice)")
         v0, v1 = tp.part(cfg.vocab_size) if tp else (0, cfg.vocab_size)
         self.vocab0 = v0
         self.vocab_parallel = v1 - v0 < cfg.vocab_size
         self.embed_tokens = Embedding(v1 - v0, cfg.hidden_size, cfg.dtype,
                                       param_dtype, device)
         self.layers = nn.ModuleList(
-            [DecoderLayer(cfg, device, param_dtype, tp)
+            [DecoderLayer(cfg, device, param_dtype, tp, ring)
              for _ in range(cfg.num_layers)])
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype,
                             device)
@@ -534,12 +563,19 @@ class LlamaModel(nn.Module):
         device sync). ``weights``: a WeightsAtUse (models/quant.py) that
         gives each module its weights where it runs, the embedding its
         gathered rows only; the model's own parameters are then not read
-        (they may live on the meta device)."""
+        (they may live on the meta device). Over a "seq" axis of n,
+        ``input_ids`` is this rank's block of S/n tokens of each row, at
+        positions from c·S/n on (c its coordinate)."""
         cfg = self.cfg
         device = input_ids.device
+        n_seq, c_seq = self.seq
+        if n_seq > 1 and (kv_caches is not None or paged_kv is not None):
+            raise NotImplementedError(
+                "a KV cache over a \"seq\" axis (serving) is not ported")
         if positions is None:
             start = cache_index if (kv_caches is not None
                                     and cache_index is not None) else 0
+            start += c_seq * input_ids.shape[1]
             positions = start + torch.arange(input_ids.shape[1],
                                              device=device)
         if weights is not None and (self.tp is not None

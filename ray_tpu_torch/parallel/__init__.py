@@ -2,9 +2,10 @@
 mesh and its per-axis process groups (mesh.py), logical-axis sharding rules
 and per-rank shards of a state dict (sharding.py), the collectives of a
 tensor-parallel rank with their gradient rules (tp.py), FSDP's gather and
-reduce-scatter (fsdp.py) and the rank processes of a program over a whole
-mesh (launch.py).
+reduce-scatter (fsdp.py), ring attention over a "seq" axis with the
+rotation ``ppermute`` (ring.py), GPipe microbatching over a "stage" axis
+(pipeline.py) and the rank processes of a program over a whole mesh
+(launch.py).
 
-Ported so far: tensor-parallel serving and sharded training over "data",
-"fsdp" and "tensor" axes. Ring attention (ring.py), the pipeline
-(pipeline.py) and expert parallelism are later slices."""
+Ported so far: tensor-parallel serving, and sharded training over "data",
+"fsdp", "seq" and "tensor" axes. Expert parallelism is the next slice."""

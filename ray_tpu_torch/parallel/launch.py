@@ -11,8 +11,11 @@ a process group of ``mesh.size`` (a FileStore rendezvous in a fresh
 temporary directory; the backend as ``llm/_internal/tp.py``'s
 ``resolve_backend`` picks it: gloo on the CPU or when ranks share a card),
 calls ``target(mesh=mesh, rank=rank, **kwargs)``, sends back what it
-returns, destroys the group and exits. Messages are pickles of plain
-Python and numpy objects written by this module on both sides.
+returns, destroys the group and exits. The job's spec (target, kwargs,
+mesh) and each rank's answer are pickles in the rendezvous directory; the
+socket carries their paths. So starting a job does not wait for the ranks
+to start, and an answer of hundreds of MB is not streamed through a
+socket. Both hold plain Python and numpy objects written by this module.
 
 A rank that exits, fails, or does not answer within the timeout fails the
 job: every rank is stopped and the caller raises. After ``close()`` no rank
@@ -65,7 +68,9 @@ class RankJob:
                 "backend": self.backend, "threads": threads,
                 "store": os.path.join(self._dir, "store")}
         try:
-            blob = pickle.dumps(spec, protocol=pickle.HIGHEST_PROTOCOL)
+            path = os.path.join(self._dir, "spec.pkl")
+            with open(path, "wb") as f:
+                pickle.dump(spec, f, protocol=pickle.HIGHEST_PROTOCOL)
             env = rank_env(threads)
             for rank in range(mesh.size):
                 mine, theirs = socket.socketpair()
@@ -76,7 +81,7 @@ class RankJob:
                         pass_fds=(theirs.fileno(),), env=env))
                 self._conns.append(Connection(mine.detach()))
             for conn in self._conns:
-                conn.send_bytes(blob)
+                conn.send_bytes(path.encode())
         except BaseException:
             self.close()
             raise
@@ -108,7 +113,8 @@ class RankJob:
         try:
             if not conn.poll(0):
                 return None
-            ok, payload = pickle.loads(conn.recv_bytes())
+            with open(conn.recv_bytes().decode(), "rb") as f:
+                ok, payload = pickle.load(f)
         except (EOFError, OSError):
             raise RankError(f"rank {r} closed its connection")
         if not ok:
@@ -152,7 +158,9 @@ def rank_main(rank: int, fd: int) -> int:
     conn = Connection(fd)
     try:
         try:
-            spec = pickle.loads(conn.recv_bytes())
+            spec_path = conn.recv_bytes().decode()
+            with open(spec_path, "rb") as f:
+                spec = pickle.load(f)
         except (EOFError, OSError):
             return 1  # the caller is gone
         try:
@@ -171,8 +179,10 @@ def rank_main(rank: int, fd: int) -> int:
             result = (True, fn(mesh=mesh, rank=rank, **spec["kwargs"]))
         except Exception:
             result = (False, traceback.format_exc())
-        conn.send_bytes(pickle.dumps(result,
-                                     protocol=pickle.HIGHEST_PROTOCOL))
+        path = os.path.join(os.path.dirname(spec_path), f"answer{rank}.pkl")
+        with open(path, "wb") as f:
+            pickle.dump(result, f, protocol=pickle.HIGHEST_PROTOCOL)
+        conn.send_bytes(path.encode())
         return 0 if result[0] else 1
     finally:
         if dist.is_initialized():

@@ -52,6 +52,15 @@ class _Sum(torch.autograd.Function):
         return g, None
 
 
+def replicated_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum of every rank's ``x`` over ``group``, added in float32, in x's
+    dtype; the gradient passes through unchanged (every rank computes the
+    same loss from the replicated sum)."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return sum_f32(x, group)
+    return _Sum.apply(x, group)
+
+
 class _CopyIn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -99,9 +108,7 @@ class TensorParallel:
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """Sum of every rank's ``x``, added in float32, in x's dtype; the
         gradient passes through unchanged."""
-        if not (torch.is_grad_enabled() and x.requires_grad):
-            return sum_f32(x, self.group)
-        return _Sum.apply(x, self.group)
+        return replicated_sum(x, self.group)
 
     def copy_in(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` itself; its gradient is the sum of every rank's."""

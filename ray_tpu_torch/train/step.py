@@ -1,5 +1,5 @@
 """Training core: the train step for the port's models, on one device or
-sharded over a mesh (DP, FSDP and TP).
+sharded over a mesh (DP, FSDP, TP and SP).
 
 Port of ray_tpu/train/step.py. The JAX step is a pure jitted function of
 (params, opt_state); here the state holds the model and its optimizer,
@@ -18,6 +18,16 @@ shards, which equals the unsharded update since AdamW is elementwise. The
 step takes the global batch and keeps this rank's rows by its ("data",
 "fsdp") coordinates, data outer, as the reference shards "batch"; it
 returns the global mean loss, the same on every rank.
+
+Over a "seq" axis of n (sequence parallelism, ring attention) the rank
+also keeps its block of S/n columns. The reference's loss is the mean over
+all B·(S-1) next-token predictions, which cross the blocks' boundaries:
+the rank predicts the labels of columns [start+1, end+1) of its rows (the
+last block one fewer), takes its NLL sum over the global count
+B_local·(S-1), and the seq ranks' sums add up to the rows' mean; the
+parameters are replicated over "seq", so their gradients are summed over
+it. Ranks along "stage" are replicas here (the reference's model does not
+use that axis) and need no reduction.
 """
 
 from __future__ import annotations
@@ -46,12 +56,17 @@ class TrainState:
     optimizer: torch.optim.Optimizer
 
 
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each position's negative log-likelihood of its label, in f32."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, labels[..., None].long())[..., 0]
+
+
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token cross entropy in f32. logits [B,S,V], labels
     [B,S]; with ``mask`` [B,S] the mean is over the unmasked positions."""
-    logp = F.log_softmax(logits.float(), dim=-1)
-    nll = -logp.gather(-1, labels[..., None].long())[..., 0]
+    nll = _nll(logits, labels)
     if mask is None:
         return nll.mean()
     mask = mask.float()
@@ -82,18 +97,27 @@ def _mesh_of(model: nn.Module, mesh: Optional[Mesh]) -> Optional[Mesh]:
     return mesh
 
 
-def _rows(mesh: Mesh, rank: int, batch: torch.Tensor) -> torch.Tensor:
-    """This rank's rows of the global batch: block data * fsdp-size + fsdp
-    of data-size * fsdp-size equal blocks (the reference's "batch" over
-    ("data", "fsdp"))."""
+def _rows(mesh: Mesh, rank: int, batch: torch.Tensor,
+          shift: int = 0) -> torch.Tensor:
+    """This rank's block of the global batch: rows block data * fsdp-size +
+    fsdp of data-size * fsdp-size equal blocks (the reference's "batch" over
+    ("data", "fsdp")), and columns [start + shift, end + shift) of block
+    seq of seq-size equal column blocks [start, end), cut at the row's
+    end."""
     d, f = mesh.axis_size("data"), mesh.axis_size("fsdp")
+    n_seq = mesh.axis_size("seq")
     if batch.shape[0] % (d * f):
         raise ValueError(f"a batch of {batch.shape[0]} rows does not split "
                          f"over data {d} x fsdp {f}")
+    if batch.shape[1] % n_seq:
+        raise ValueError(f"a sequence of {batch.shape[1]} tokens does not "
+                         f"split over seq {n_seq}")
     c = mesh.coords(rank)
     n = batch.shape[0] // (d * f)
     block = c["data"] * f + c["fsdp"]
-    return batch[block * n:(block + 1) * n]
+    w = batch.shape[1] // n_seq
+    start = c["seq"] * w + shift
+    return batch[block * n:(block + 1) * n, start:start + w]
 
 
 def _flat_sum(tensors, group) -> None:
@@ -113,16 +137,19 @@ def _flat_sum(tensors, group) -> None:
 
 def _reduce_grads(model: nn.Module, mesh: Mesh) -> None:
     """Turn each rank's gradients into its shard of the gradient of the
-    global mean loss: fsdp-placed parameters already hold the sum over the
-    fsdp ranks (the reduce-scatter); every gradient is summed over the
-    data ranks, one replicated over fsdp also over the fsdp ranks, and all
-    are divided by data x fsdp (the loss is the mean of equal local
-    means)."""
+    global mean loss: every gradient is summed over the seq ranks (each
+    differentiated its part of its rows' mean); fsdp-placed parameters
+    already hold the sum over the fsdp ranks (the reduce-scatter); every
+    gradient is summed over the data ranks, one replicated over fsdp also
+    over the fsdp ranks, and all are divided by data x fsdp (the loss is
+    the mean of equal local means)."""
     d, f = mesh.axis_size("data"), mesh.axis_size("fsdp")
     for p in model.parameters():
         if p.grad is None:  # unused here, maybe not on another rank
             p.grad = torch.zeros_like(p)
     grads = {n: p.grad for n, p in model.named_parameters()}
+    if mesh.axis_size("seq") > 1:
+        _flat_sum(grads.values(), axis_group(mesh, "seq"))
     if d > 1:
         _flat_sum(grads.values(), axis_group(mesh, "data"))
     if f > 1:
@@ -135,10 +162,11 @@ def _reduce_grads(model: nn.Module, mesh: Mesh) -> None:
 
 
 def _mean_loss(loss: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The mean of every (data, fsdp) rank's local mean loss."""
+    """The mean of every (data, fsdp) rank's local mean loss, each the sum
+    of its seq ranks' parts."""
     d, f = mesh.axis_size("data"), mesh.axis_size("fsdp")
     loss = loss.detach().clone()
-    for ax, n in (("data", d), ("fsdp", f)):
+    for ax, n in (("seq", mesh.axis_size("seq")), ("data", d), ("fsdp", f)):
         if n > 1:
             dist.all_reduce(loss, group=axis_group(mesh, ax))
     return loss / (d * f)
@@ -159,7 +187,7 @@ def make_train_step(
 
     With ``mesh`` (the model's), run in each rank process: the step takes
     the global batch and returns the global mean loss; after backward
-    the gradients are reduced over the data and fsdp ranks
+    the gradients are reduced over the seq, data and fsdp ranks
     (``_reduce_grads``). ``param_rules`` must place the parameters as
     ``init_train_state`` placed them (checked at the first call)."""
     mesh = _mesh_of(model, mesh)
@@ -170,15 +198,24 @@ def make_train_step(
         if state.model is not model or state.optimizer is not optimizer:
             raise ValueError("the state holds another model or optimizer "
                              "than this step was made for")
+        seq = mesh is not None and mesh.axis_size("seq") > 1
         if mesh is not None:
             if not checked:
                 place_params(model, param_rules)
                 checked.append(True)
+            count = (input_ids.shape[0] // (mesh.axis_size("data")
+                                            * mesh.axis_size("fsdp"))
+                     * (input_ids.shape[1] - 1))
+            # Over "seq": the labels of this rank's predictions.
+            labels = _rows(mesh, model.rank, labels, shift=int(seq))
             input_ids = _rows(mesh, model.rank, input_ids)
-            labels = _rows(mesh, model.rank, labels)
         optimizer.zero_grad(set_to_none=True)
         logits = model(input_ids)
-        loss = cross_entropy_loss(logits[:, :-1], labels[:, 1:])
+        if seq:
+            n = labels.shape[1]
+            loss = _nll(logits[:, :n], labels).sum() / count
+        else:
+            loss = cross_entropy_loss(logits[:, :-1], labels[:, 1:])
         loss.backward()
         if mesh is not None:
             _reduce_grads(model, mesh)
@@ -232,7 +269,7 @@ def init_train_state(
             raise ValueError("the optimizer has stepped: place the "
                              "parameters before its first step")
         _rows(mesh, model.rank, sample_input)
-        for ax in ("data", "fsdp", "tensor"):  # every rank, in one order
+        for ax in ("data", "fsdp", "seq", "tensor"):  # every rank, one order
             if mesh.axis_size(ax) > 1:
                 axis_group(mesh, ax)
         place_params(model, param_rules)

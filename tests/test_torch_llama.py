@@ -243,8 +243,10 @@ def test_unported_branches_raise(tiny):
     """attention_impl="ring" without a "seq" axis is plain attention, as in
     the reference (ray_tpu/models/llama.py:207-214): the same logits as
     the reference's ring model without a mesh, and as the port's
-    "reference" path exactly. A mesh with a "seq" axis above 1 raises until
-    ring attention is ported."""
+    "reference" path exactly. A mesh with a "seq" axis above 1 is taken by
+    the ring model (ring attention) and refused with another impl, and a
+    KV cache over it raises; an "expert" axis above 1 raises until expert
+    parallelism is ported."""
     japply, jparams, ring = _models(tiny, "ring")
     _, _, plain = _models(tiny, "reference")
     ids = np.random.default_rng(5).integers(0, 128, (2, 12), dtype=np.int32)
@@ -255,8 +257,17 @@ def test_unported_branches_raise(tiny):
     assert torch.equal(got, want)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **LOGIT_TOL)
     mesh = create_mesh({"seq": 2}, devices=[torch.device("cpu")] * 2)
-    with pytest.raises(NotImplementedError, match="ring attention"):
-        tllama.LlamaModel(ring.cfg, device="meta", mesh=mesh, rank=0)
+    sp = tllama.LlamaModel(ring.cfg, device="cpu", mesh=mesh, rank=1)
+    assert sp.layers[0].self_attn.ring == (mesh, 1)
+    with pytest.raises(NotImplementedError, match="KV cache"):
+        sp(torch.zeros((1, 4), dtype=torch.long),
+           kv_caches=tllama.init_kv_caches(ring.cfg, 1, 8, device="cpu"),
+           cache_index=0)
+    with pytest.raises(NotImplementedError, match="attention_impl"):
+        tllama.LlamaModel(plain.cfg, device="meta", mesh=mesh, rank=0)
+    expert = create_mesh({"expert": 2}, devices=[torch.device("cpu")] * 2)
+    with pytest.raises(NotImplementedError, match="expert parallelism"):
+        tllama.LlamaModel(ring.cfg, device="meta", mesh=expert, rank=0)
 
 
 def test_init_params_is_seeded():

@@ -263,9 +263,10 @@ def test_shard_shapes_match_reference_without_processes():
 
 
 def test_unsplittable_batch_and_unported_axes_raise():
-    """A batch that data x fsdp does not divide raises ValueError; a "seq",
-    "stage" or "expert" axis above 1 raises NotImplementedError (ring
-    attention, the pipeline and expert parallelism are later slices)."""
+    """A batch that data x fsdp does not divide, and a sequence that the
+    "seq" axis does not divide, raise ValueError; an "expert" axis above 1
+    raises NotImplementedError (expert parallelism is the next slice),
+    while "seq" (with ring attention) and "stage" axes are taken."""
     mesh = create_mesh({"data": 2, "fsdp": 2}, devices=[CPU] * 4)
     model = tllama.LlamaModel(_cfg("reference"), device="cpu",
                               param_dtype=torch.float32, mesh=mesh, rank=1)
@@ -274,17 +275,29 @@ def test_unsplittable_batch_and_unported_axes_raise():
         tstep.init_train_state(model, opt, torch.zeros((6, 8), dtype=torch.long),
                                device="cpu", mesh=mesh,
                                param_rules=tllama.LLAMA_SHARDING)
-    for axis in ("seq", "stage", "expert"):
-        bad = create_mesh({axis: 2}, devices=[CPU] * 2)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tllama.LlamaModel(_cfg("reference"), device="meta", mesh=bad,
-                              rank=0)
+    seq = create_mesh({"seq": 2, "data": 2}, devices=[CPU] * 4)
+    model = tllama.LlamaModel(_cfg("ring"), device="cpu",
+                              param_dtype=torch.float32, mesh=seq, rank=3)
+    opt = tstep.adamw(model.parameters(), LR)
+    with pytest.raises(ValueError, match="sequence of 7 tokens"):
+        tstep.init_train_state(model, opt, torch.zeros((4, 7), dtype=torch.long),
+                               device="cpu", mesh=seq,
+                               param_rules=tllama.LLAMA_SHARDING)
+    bad = create_mesh({"expert": 2}, devices=[CPU] * 2)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tllama.LlamaModel(_cfg("reference"), device="meta", mesh=bad, rank=0)
+    for shape, impl in (({"seq": 2}, "ring"), ({"stage": 2}, "reference")):
+        ok = create_mesh(shape, devices=[CPU] * 2)
+        model = tllama.LlamaModel(_cfg(impl), device="meta", mesh=ok, rank=1)
+        assert model.seq == ((2, 1) if "seq" in shape else (1, 0))
 
 
 def test_dryrun_multigpu_on_cpu_ranks(started):
-    """dryrun_multigpu(4) (the mesh {"tensor": 2, "fsdp": 2}) in four CPU
-    rank processes: one step, the same finite loss on every rank; no
-    process group in this worker, the rendezvous directory gone."""
+    """dryrun_multigpu(4) (the mesh {"seq": 2, "tensor": 2} with ring
+    attention, then the pipeline at {"stage": 2, "data": 2}) in four CPU
+    rank processes: one step, the same finite loss on every rank, the
+    pipeline's output of xs's shape; no process group in this worker, the
+    rendezvous directories gone."""
     thread, dry, tmp = started[1]
     thread.join(300)
     assert not thread.is_alive()

@@ -388,6 +388,82 @@ def sharded_train_rows(rows):
             results[repr(T.FOUR), impl], *jax_runs[impl])
 
 
+def ring_pipeline_rows(rows):
+    """tests/test_torch_ring.py's and tests/test_torch_pipeline.py's runs:
+    the blockwise update, ring attention at {"seq": 4} and 3 steps at
+    {"seq": 2, "tensor": 2} on gloo CPU ranks, and the pipeline at S 2
+    and 4, against the reference's."""
+    import test_torch_pipeline as P
+    import test_torch_ring as R
+    from ray_tpu_torch.entry import full_params, train_job
+
+    jparams, sd = R.weights()
+    ring_runs = R.rank_runs(sd)
+    per_rank = train_job(ring_runs + P.rank_runs(), device="cpu").results()
+    ring_ref, step_ref = R.reference_runs(jparams)
+    q0, k0, v0 = R._qkv(2, 64, 4, 4, 32, 7)
+    _, k1, v1 = R._qkv(2, 64, 4, 4, 32, 8)
+    s_ = q0.shape[1]
+    tri = np.where(np.arange(s_)[None, :] <= np.arange(s_)[:, None], 0.0,
+                   -1e30).astype(np.float32)
+    block = 0.0
+    for second in (None, np.full((s_, s_), -1e30, np.float32)):
+        outs = []
+        for mod, arr in ((tattn, torch.from_numpy), (jattn, jnp.asarray)):
+            m, l, o = mod.block_attn_init(arr(q0))
+            for k_, v_, msk in ((k0, v0, tri), (k1, v1, second)):
+                m, l, o = mod.block_attn_update(
+                    arr(q0), arr(k_), arr(v_), m, l, o, scale=0.17,
+                    mask=None if msk is None else arr(msk))
+            outs.append(f32(mod.block_attn_finish(l, o, arr(q0).dtype)))
+        block = max(block, err(*outs))
+    rows.append(("ops/attention.py `block_attn_init/update/finish` (the "
+                 "diagonal block, then one unmasked or fully masked)",
+                 "`block_attn_*`", block, R.OUT_TOL["atol"]))
+    for i, (name, *_rest) in enumerate(R.RING_CASES):
+        want = ring_ref[name]
+        got = R.assemble(per_rank, i, want)
+        rows.append((f"parallel/ring.py `ring_attention` at {{\"seq\": 4}}, "
+                     f"{name} (out)", "`ring_attention`, 4 CPU devices",
+                     err(got[0], want[0]), R.OUT_TOL["atol"]))
+        rows.append((f"parallel/ring.py `ring_attention` at {{\"seq\": 4}}, "
+                     f"{name} (dq, dk, dv)", "`jax.vjp` of it",
+                     max(err(a, b) for a, b in zip(got[1:], want[1:])),
+                     R.GRAD_TOL["atol"]))
+    res = [r[len(R.RING_CASES)] for r in per_rank]
+    got = full_params(res)
+    for ref_name, (losses, params) in (
+            ("(the port on one device)", R.single_device(sd)),
+            ("`make_train_step(mesh=)`, ring, 4 CPU devices", step_ref)):
+        rows.append(("train/step.py at {\"seq\": 2, \"tensor\": 2} (ring), "
+                     "loss after 3 steps, relative", ref_name,
+                     max(abs(a - b) / abs(b) for r in res
+                         for a, b in zip(r["losses"], losses)),
+                     R.LOSS_RTOL))
+        rows.append(("train/step.py at {\"seq\": 2, \"tensor\": 2} (ring), "
+                     "weights after 3 steps", ref_name,
+                     max(err(got[n], params[n]) for n in params),
+                     R.PARAM_ATOL))
+    pipe_ref = P.reference_runs()
+    out_err = grad_err = 0.0
+    for j, (case, S) in enumerate(P.RUNS):
+        _, dws, dbs, dxs = pipe_ref[j]
+        for r in (pr[len(ring_runs) + j] for pr in per_rank):
+            out_err = max(out_err, err(r["out"], pipe_ref[j][0]))
+            grad_err = max(grad_err, err(r["dw"], dws[r["stage"]]),
+                           err(r["db"], dbs[r["stage"]]))
+            if r["stage"] == 0:
+                grad_err = max(grad_err, err(r["dx"], dxs))
+    rows.append(("parallel/pipeline.py `pipeline_apply` at S 2 and 4 "
+                 "(test_pipeline.py's two cases), out",
+                 "`pipeline_apply`", out_err,
+                 P.TOL["atol"]))
+    rows.append(("parallel/pipeline.py `pipeline_apply` gradients (dw, db, "
+                 "dx), the same runs", "`jax.grad` of `pipeline_apply`",
+                 grad_err,
+                 P.TOL["atol"]))
+
+
 def main():
     rows = []
     rng = np.random.default_rng(0)
@@ -533,6 +609,7 @@ def main():
     text_surface_rows(rows)
     parallel_rows(rows)
     sharded_train_rows(rows)
+    ring_pipeline_rows(rows)
 
     print("| Port module | JAX counterpart | max abs error | tolerance |")
     print("|---|---|---|---|")
