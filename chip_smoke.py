@@ -23,14 +23,19 @@ teacher-forced forward; and the batch engine stage runs a ragged block of 8
 rows at the same width. Then tensor-parallel serving (parallel/,
 llm/_internal/tp.py) with two rank processes sharing this card over gloo:
 the tiny f32 model against TP 1, and Llama-3-8B (32 layers) through
-serve_8b's waves, K1 and K4 on each rank's local heads. Then sharded
-training (train/step.py with mesh=, parallel/fsdp.py, parallel/launch.py),
-its ranks sharing this card over gloo: dryrun_multigpu(4) (ring attention
-over "seq", then a pipeline over "stage") and the tiny f32
-model at {"data": 2} against TP 1, then the Llama-3-8B widths cut to 2
-layers at {"tensor": 2} and {"fsdp": 2, "tensor": 2} against TP 1 at the
-same depth, K1, K2 and K3 on each rank's local heads, and at {"seq": 2,
-"tensor": 2} with ring attention (parallel/ring.py; no K1-K3). Then
+serve_8b's waves, K1 and K4 on each rank's local heads; and the 4-layer
+MoE Llama of serve_moe through two ranks at {"tensor": 2} and at
+{"expert": 2} (expert parallelism, parallel/ep.py) against its one-card
+run. Then sharded training (train/step.py with mesh=, parallel/fsdp.py,
+parallel/launch.py), its ranks sharing this card over gloo:
+dryrun_multigpu(4) (ring attention over "seq", then a pipeline over
+"stage" and the MoE Llama over "expert") and the tiny f32 model at
+{"data": 2} against TP 1, then the Llama-3-8B widths cut to 2 layers at
+{"tensor": 2} and {"fsdp": 2, "tensor": 2} against TP 1 at the same
+depth, K1, K2 and K3 on each rank's local heads, and at {"seq": 2,
+"tensor": 2} with ring attention (parallel/ring.py; no K1-K3); and the
+MoE Llama with 8 experts cut to 1 layer at {"expert": 2, "tensor": 2}
+against one device at the same depth. Then
 ring attention alone at {"seq": 2} and {"seq": 4} (bf16 at the 8B
 attention widths, and f32) and pipeline_apply (parallel/pipeline.py) at
 {"stage": 2} and {"stage": 4}, each held against one device. Each phase prints
@@ -1380,7 +1385,8 @@ def serve_moe_phase(dev, wrappers):
         router_logit_max_diff=noise, router_logit_tol=MOE_ROUTER_TOL))
     emit(profile)
     del engine, model, served, taught, s_logits, t_logits
-    return {**launches, "forward_shape": shape}
+    return {**launches, "forward_shape": shape, "cfg": cfg,
+            "tokens": [w[2] for w in waves]}
 
 
 # ---------------------------------------------------------------------------
@@ -2011,6 +2017,144 @@ def serve_8b_tp2_phase(dev):
             "decode_seq_len": prompt_len + max_tokens}
 
 
+# serve_moe's engine over two ranks sharing this card (serve_moe_mesh): at
+# {"tensor": 2} each rank holds 16 of 32 query heads, 4 of 8 kv heads and
+# every expert's half of the "mlp" dim, at {"expert": 2} 4 of the 8 experts
+# and every head. TP rounds each rank's bf16 partials before their f32 sum
+# and EP sums the experts' f32 partials in another order, so a token whose
+# two best experts nearly tie may route apart from one card: as in
+# serve_moe, MOE_TEACHER_SHARE of the answer positions must hold the dense
+# limits (TEACHER_TOL, TP_LOGPROB_TOL) and every position
+# MOE_APART_GAP_TOL (limits stated before the first run).
+MOE_MESHES = ({"tensor": 2}, {"expert": 2})
+MOE_MESH_WAVES = 2
+
+
+def serve_moe_mesh_phase(dev, moe):
+    """serve_moe's config (the 8B widths, 8 experts, capacity factor 8, 4 of
+    32 layers, bf16, seed 0) and engine config through LLMEngine(mesh=) at
+    each of MOE_MESHES, its two rank processes sharing this card over gloo
+    (llm/_internal/tp.py): the first MOE_MESH_WAVES of serve_moe's waves
+    (the same prompts), after its warm wave. Against serve_moe's one-card
+    run (``moe``): the share of its greedy tokens the mesh repeats, and the
+    log-softmax of the mesh's answers teacher-forced through the mesh's
+    flash forward (K1 on each rank's local heads) against serve_moe's
+    model's on the same ids; the mesh's answers' teacher gaps. Each rank's
+    K4 and K1 launches are exact; its peak memory is recorded."""
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine
+    from ray_tpu_torch.llm._internal.runner import SeededParams
+    from ray_tpu_torch.models.llama import LlamaModel, init_params
+    from ray_tpu_torch.parallel.mesh import create_mesh
+
+    cfg, K, max_tokens = moe["cfg"], 8, 48
+    card = dev
+    if dev.type == "cuda" and dev.index is None:
+        card = torch.device("cuda", torch.cuda.current_device())
+    runs = []
+    for shape in MOE_MESHES:
+        t0 = time.perf_counter()
+        engine = LLMEngine(
+            LlamaModel(cfg, device="meta"), SeededParams(0),
+            EngineConfig(max_seqs=8, page_size=64, max_pages_per_seq=8,
+                         decode_steps=K),
+            mesh=create_mesh(shape, devices=[card] * 2), tp_backend="gloo")
+        setup_s = time.perf_counter() - t0
+        runner = engine.runner
+        procs = list(runner._procs)
+        try:
+            engine_waves(engine, cfg.vocab_size, 1, 8, seed=20)  # warm
+            start = runner.counters(reset=True)  # peaks since start
+            waves = engine_waves(engine, cfg.vocab_size, MOE_MESH_WAVES,
+                                 max_tokens, seed=21)
+            decoded = runner.counters()
+            rows = [list(zip(p, t)) for p, _, t, _, _ in waves]
+            t = time.perf_counter()
+            gaps, lps, finite, fshape = teacher_gaps(
+                lambda ids: runner.forward(ids).to(dev), rows, dev)
+            teacher_s = time.perf_counter() - t
+            counts = runner.counters()
+        finally:
+            engine.close()
+        runs.append({"shape": shape, "setup_s": setup_s, "info": runner.info,
+                     "start": start, "waves": waves, "decoded": decoded,
+                     "rows": rows, "gaps": gaps, "lps": lps,
+                     "finite": finite, "forward_shape": fshape,
+                     "teacher_s": teacher_s, "counts": counts,
+                     "gone": all(p.poll() is not None for p in procs)})
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = LlamaModel(cfg, device=dev)
+    init_params(model, torch.Generator(device=dev).manual_seed(0))
+    for run in runs:
+        _, run["lps_1"], run["finite_1"], _ = teacher_gaps(model, run["rows"],
+                                                           dev)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    for run in runs:
+        shape, waves = run["shape"], run["waves"]
+        label = "_".join(f"{a}{n}" for a, n in shape.items())
+        gaps = [g for w in run["gaps"] for r in w for g in r]
+        diffs = [abs(a - b) for w, w1 in zip(run["lps"], run["lps_1"])
+                 for r, r1 in zip(w, w1) for a, b in zip(r, r1)]
+        ones = [t for w in moe["tokens"][:MOE_MESH_WAVES] for t in w]
+        mine = [t for w in waves for t in w[2]]
+        same = sum(a == b for x, y in zip(mine, ones) for a, b in zip(x, y))
+        prefix = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b),
+                       len(x)) for x, y in zip(mine, ones)]
+        held_gap = sum(g <= TEACHER_TOL for g in gaps) / len(gaps)
+        held_lp = sum(d <= TP_LOGPROB_TOL for d in diffs) / len(diffs)
+        k4 = MOE_MESH_WAVES * cfg.num_layers * K * math.ceil(
+            (max_tokens - 1) / K)
+        k1 = MOE_MESH_WAVES * cfg.num_layers
+        ok_launch = (rank_launches_ok(run["decoded"], k4, 0)
+                     and rank_launches_ok(run["counts"], k4, k1))
+        ok = (all(len(t) == max_tokens for t in mine) and run["finite"]
+              and run["finite_1"] and held_gap >= MOE_TEACHER_SHARE
+              and max(gaps) <= MOE_APART_GAP_TOL
+              and held_lp >= MOE_TEACHER_SHARE
+              and max(diffs) <= MOE_APART_GAP_TOL and ok_launch
+              and run["gone"])
+        check(ok, f"MoE serving at {shape}")
+        emit({"phase": f"serve_moe_mesh_{label}", "mesh": shape,
+              "layers": cfg.num_layers, "of_layers": 32,
+              "experts": cfg.num_experts,
+              "capacity_factor": cfg.moe_capacity_factor,
+              "dtype": "bfloat16", "backend": "gloo", "ranks": run["info"],
+              "requests": 8, "prompt_tokens": 128, "max_tokens": max_tokens,
+              "decode_steps": K, "waves": MOE_MESH_WAVES,
+              "setup_s": run["setup_s"],
+              "wall_s": [w[4] for w in waves],
+              "tokens_per_s_ranks_sharing_one_card_over_gloo":
+                  [sum(len(t) for t in w[2]) / w[4] for w in waves],
+              "tokens_equal_to_one_card": same,
+              "tokens": len(mine) * max_tokens,
+              "rows_equal_to_one_card": sum(p == max_tokens
+                                             for p in prefix),
+              "rows_first_token_apart": sorted(prefix),
+              "teacher_s": run["teacher_s"], "teacher_max_gap": max(gaps),
+              "teacher_share_within_tol": held_gap,
+              "teacher_tol": TEACHER_TOL,
+              "one_card_logprob_max_abs_diff": max(diffs),
+              "one_card_logprob_share_within_tol": held_lp,
+              "one_card_logprob_tol": TP_LOGPROB_TOL,
+              "share_min": MOE_TEACHER_SHARE,
+              "apart_tol": MOE_APART_GAP_TOL,
+              "rank_peak_gb_with_weights": [c.get("peak_gb")
+                                            for c in run["start"]],
+              "rank_peak_gb_serving": [c.get("peak_gb")
+                                       for c in run["counts"]],
+              "rank_launches": run["counts"], "paged_decode_expected": k4,
+              "flash_fwd_expected": k1, "ranks_exited": run["gone"],
+              "ok": ok})
+        out[label] = {"forward_shape": run["forward_shape"],
+                      "rank_launches": run["counts"],
+                      "heads": (run["info"][0]["heads"],
+                                run["info"][0]["kv_heads"])}
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Sharded training (train/step.py with mesh=, parallel/fsdp.py,
 # parallel/launch.py): rank processes sharing this card over gloo, each
@@ -2055,6 +2199,39 @@ MESH_8B_GRAD_RTOL = 5e-2
 MESH_8B_LAYERS = 2
 MESH_GRADS = ("layers.0.self_attn.q_proj.weight",
               "layers.0.mlp.down_proj.weight")
+# Expert parallelism (train_moe_8b_ep2_tp2): the MoE Llama of serve_moe (8
+# experts) at the 8B widths cut to 1 of 32 layers. An MoE layer holds 1.41 B
+# expert parameters, 22.5 GB at 16 B each (f32 weight, gradient, two AdamW
+# moments); one layer with the embedding and lm_head is 2.50 B, 40 GB on
+# the one device (run first, in this process), and ≈ 0.90 B, 14.4 GB, a
+# rank at {"expert": 2, "tensor": 2}: ≈ 58 GB for the four ranks on the
+# card before activations (two layers would need ≈ 81 GB). The loss is
+# held as the dense phases' (MESH_8B_LOSS_TOL). The gradients (a rank's
+# slice of gate_kernel, the router, a q_proj) are not: a token whose two
+# best experts nearly tie routes apart under another rounding, and each
+# such token moves a whole expert's contribution. One device's own bf16
+# gradients of this layer lie 9-13 % (relative Frobenius) from its
+# f32-compute ones at reduced widths (hidden 256; a dense layer's 1.2 %),
+# and the ranks' 7-9 % from the one device's in a CPU rehearsal there. So
+# MOE_8B_GRAD_RTOL is 0.25, stated before the first run: a gradient
+# missing its sum over the expert or the tensor group is off by 50 % or
+# more.
+MOE_8B_LAYERS = 1
+MOE_8B_EXPERTS = 8
+MOE_8B_GRAD_RTOL = 0.25
+# The losses after the first step are not held to MESH_8B_LOSS_TOL alone:
+# AdamW moves every router weight by about lr whatever its gradient's
+# size, so the gradients' rounding differences turn into different routes
+# after a step or two. The first chip run of this phase read 9.8e-4 and
+# 5.3e-4 off the one device at steps 1 and 2, then 0.102 at step 3 (the
+# one device's loss 10.07). So the one device also takes the same steps
+# with plain attention (another rounding of the same step, as train_8b's
+# yardstick), and step i's loss is held to the larger of MESH_8B_LOSS_TOL
+# and MOE_LOSS_NOISE times that run's distance from the flash run at step
+# i (factor stated before the run that first applied it).
+MOE_LOSS_NOISE = 2.0
+MOE_GRADS = ("layers.0.self_attn.q_proj.weight",
+             "layers.0.mlp.router.weight", "layers.0.mlp.gate_kernel")
 
 
 def mesh_launches_ok(results, want):
@@ -2063,8 +2240,9 @@ def mesh_launches_ok(results, want):
 
 def train_tiny_mesh_phase(dev):
     """dryrun_multigpu(4) ({"seq": 2, "tensor": 2} with ring attention,
-    tiny, one step; then its pipeline at {"stage": 2, "data": 2}) with its
-    four ranks on this card; then the tiny f32 flash model at {"data":
+    tiny, one step; then its pipeline at {"stage": 2, "data": 2} and a step
+    of the tiny MoE Llama at {"expert": 2, "data": 2}) with its four ranks
+    on this card; then the tiny f32 flash model at {"data":
     2} for 3 AdamW steps at lr 1e-3 on train_tiny's batch and seed, against
     the port's TP 1 on this card: each rank's losses, its step-1 gradients
     and the unsharded weights within the CPU limits (MESH_TINY_*), K1, K2
@@ -2123,7 +2301,8 @@ def train_tiny_mesh_phase(dev):
     check(ok, "tiny sharded training")
     emit({"phase": "train_tiny_mesh", "dryrun_multigpu_4_mesh":
               mesh_shape_for(4), "dryrun_attention_impl": "ring",
-          "dryrun_pp_mesh": {"stage": 2, "data": 2}, "dryrun_loss": dry,
+          "dryrun_pp_mesh": {"stage": 2, "data": 2},
+          "dryrun_ep_mesh": {"expert": 2, "data": 2}, "dryrun_loss": dry,
           "dryrun_s": dry_s, "mesh": {"data": 2}, "backend": "gloo",
           "ranks_s": ranks_s, "losses": [r["losses"] for r in res],
           "tp1_losses": losses, "loss_max_rel_err": loss_rel,
@@ -2138,55 +2317,76 @@ def train_tiny_mesh_phase(dev):
           "launches_expected": launches, "ok": ok})
 
 
-def train_8b_mesh_phase(dev, name, shape, impl="flash"):
-    """Training at the Llama-3-8B widths cut to MESH_8B_LAYERS layers (bf16
+def train_8b_mesh_phase(dev, name, shape, impl="flash", layers=MESH_8B_LAYERS,
+                        num_experts=0, grads_of=MESH_GRADS,
+                        grad_rtol=MESH_8B_GRAD_RTOL):
+    """Training at the Llama-3-8B widths cut to ``layers`` layers (bf16
     compute over f32 parameters, remat, AdamW at lr 3e-4, train_8b's batch
-    of 2 x 2048 seeded ids, seed 0) over ``shape`` with attention ``impl``,
-    its ranks sharing this card over gloo, against TP 1 of the same config
-    at the same depth run first in this process: each step's loss, and the
-    first step's gradient of MESH_GRADS' rank slices by relative Frobenius
-    error. Each rank's launches are exact: under "flash" K1 2 a layer and
-    step (remat), K2 and K3 1 each; under "ring" (a "seq" axis: ring
-    attention, plain PyTorch as in the reference) none, and TP 1 runs plain
-    attention. Each rank's peak memory and step seconds are recorded (gloo
+    of 2 x 2048 seeded ids, seed 0; ``num_experts`` > 0: the switch-routed
+    MoE Llama) over ``shape`` with attention ``impl``, its ranks sharing
+    this card over gloo, against TP 1 of the same config at the same depth
+    run first in this process: each step's loss (MESH_8B_LOSS_TOL; for the
+    MoE Llama also MOE_LOSS_NOISE times the distance of the same steps
+    with plain attention on one device), and the first step's gradient of
+    ``grads_of``'s rank slices by relative Frobenius error (``grad_rtol``).
+    Each rank's launches are exact: under "flash" K1 2 a layer and step
+    (remat), K2 and K3 1 each; under "ring" (a "seq" axis: ring attention,
+    plain PyTorch as in the reference) none, and TP 1 runs plain attention.
+    Each rank's peak memory, step seconds and experts are recorded (gloo
     through host memory: no sharded-training speed)."""
     from ray_tpu_torch.entry import train_on_ranks
     from ray_tpu_torch.models.llama import LlamaConfig, LlamaModel
     from ray_tpu_torch.train import adamw, init_train_state, make_train_step
 
     B, S, lr, steps, seed = 2, 2048, 3e-4, 3, 0
-    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
-                              num_layers=MESH_8B_LAYERS, attention_impl=impl)
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=layers,
+                              attention_impl=impl, num_experts=num_experts)
     ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S))
-    model = LlamaModel(cfg, device=dev, param_dtype=torch.float32)
-    opt = adamw(model.parameters(), lr)
-    batch = torch.from_numpy(ids).to(dev)
-    state = init_train_state(model, opt, batch, device=dev,
-                             generator=torch.Generator(
-                                 device=dev).manual_seed(seed))
-    step = make_train_step(model, opt)
-    params = dict(model.named_parameters())
-    torch.cuda.reset_peak_memory_stats()
-    losses, tp1_s = [], []
-    for i in range(steps):
-        t = time.perf_counter()
-        losses.append(step(state, batch, batch)[1].item())
-        tp1_s.append(time.perf_counter() - t)
-        if i == 0:
-            grads = {n: params[n].grad.float().cpu() for n in MESH_GRADS}
-    tp1_peak = torch.cuda.max_memory_allocated() / GB
-    del model, opt, state, step, params
-    gc.collect()
-    torch.cuda.empty_cache()
+
+    def one_device(cfg, grads_of):
+        model = LlamaModel(cfg, device=dev, param_dtype=torch.float32)
+        opt = adamw(model.parameters(), lr)
+        batch = torch.from_numpy(ids).to(dev)
+        state = init_train_state(model, opt, batch, device=dev,
+                                 generator=torch.Generator(
+                                     device=dev).manual_seed(seed))
+        step = make_train_step(model, opt)
+        params = dict(model.named_parameters())
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_s = [], []
+        for i in range(steps):
+            t = time.perf_counter()
+            losses.append(step(state, batch, batch)[1].item())
+            step_s.append(time.perf_counter() - t)
+            if i == 0:
+                grads = {n: params[n].grad.float().cpu() for n in grads_of}
+        peak = torch.cuda.max_memory_allocated() / GB
+        del model, opt, state, step, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        return losses, step_s, grads, peak
+
+    losses, tp1_s, grads, tp1_peak = one_device(cfg, grads_of)
+    loss_tol = [MESH_8B_LOSS_TOL] * steps
+    plain = None
+    if num_experts:
+        plain = one_device(dataclasses.replace(cfg,
+                                               attention_impl="reference"),
+                           ())[0]
+        loss_tol = [max(MESH_8B_LOSS_TOL, MOE_LOSS_NOISE * abs(a - b))
+                    for a, b in zip(plain, losses)]
+    free, total = torch.cuda.mem_get_info(dev)
+    card_used = (total - free) / GB  # this process's and any other's
+    main_reserved = torch.cuda.memory_reserved(dev) / GB
     t0 = time.perf_counter()
     res = train_on_ranks(shape, cfg, ids, steps, lr, device=dev, seed=seed,
-                         grads_of=MESH_GRADS)
+                         grads_of=grads_of)
     ranks_s = time.perf_counter() - t0
-    loss_err = max(abs(a - b) for r in res
-                   for a, b in zip(r["losses"], losses))
+    loss_errs = [max(abs(r["losses"][i] - losses[i]) for r in res)
+                 for i in range(steps)]
     grad_err = {}
     for r in res:
-        for n in MESH_GRADS:
+        for n in grads_of:
             want = grads[n][r["index"][n]]
             got = torch.from_numpy(r["grads"][n])
             grad_err[f"rank{r['rank']}:{n}"] = (
@@ -2197,8 +2397,8 @@ def train_8b_mesh_phase(dev, name, shape, impl="flash"):
                 "flash_bwd_dq": L * steps * per,
                 "flash_bwd_dkv": L * steps * per}
     finite = all(math.isfinite(x) for r in res for x in r["losses"])
-    ok = (finite and loss_err <= MESH_8B_LOSS_TOL
-          and max(grad_err.values()) <= MESH_8B_GRAD_RTOL
+    ok = (finite and all(e <= t for e, t in zip(loss_errs, loss_tol))
+          and max(grad_err.values()) <= grad_rtol
           and mesh_launches_ok(res, launches))
     check(ok, name)
     row = {"phase": name, "mesh": shape, "attention_impl": impl,
@@ -2206,10 +2406,15 @@ def train_8b_mesh_phase(dev, name, shape, impl="flash"):
            "of_layers": 32, "dtype": "bfloat16", "param_dtype": "float32",
            "remat": cfg.remat, "batch": B, "seq_len": S, "lr": lr,
            "rank_heads": [[r["heads"], r["kv_heads"]] for r in res],
+           "experts": num_experts,
+           "rank_experts": [r["experts"] for r in res],
            "tp1_losses": losses, "losses": [r["losses"] for r in res],
-           "loss_max_abs_err": loss_err, "loss_tol": MESH_8B_LOSS_TOL,
+           "loss_max_abs_err": max(loss_errs), "loss_abs_err": loss_errs,
+           "loss_tol": loss_tol, "tp1_plain_attention_losses": plain,
            "grad_rel_frobenius_err": grad_err,
-           "grad_rtol": MESH_8B_GRAD_RTOL, "tp1_peak_gb": tp1_peak,
+           "grad_rtol": grad_rtol, "tp1_peak_gb": tp1_peak,
+           "card_used_gb_before_ranks": card_used,
+           "main_reserved_gb_before_ranks": main_reserved,
            "tp1_step_s": tp1_s,
            "rank_peak_gb": [r.get("peak_gb") for r in res],
            "rank_step_s_ranks_sharing_one_card_over_gloo":
@@ -2546,6 +2751,9 @@ def main():
     tp = serve_8b_tp2_phase(dev)
     gc.collect()
     torch.cuda.empty_cache()
+    moe_mesh = serve_moe_mesh_phase(dev, moe)
+    gc.collect()
+    torch.cuda.empty_cache()
     train_tiny_mesh_phase(dev)
     meshes = {"train_8b_tp2": ({"tensor": 2}, "flash"),
               "train_8b_fsdp2_tp2": ({"fsdp": 2, "tensor": 2}, "flash"),
@@ -2555,6 +2763,12 @@ def main():
         sharded[name] = train_8b_mesh_phase(dev, name, shape, impl)
         gc.collect()
         torch.cuda.empty_cache()
+    sharded["train_moe_8b_ep2_tp2"] = train_8b_mesh_phase(
+        dev, "train_moe_8b_ep2_tp2", {"expert": 2, "tensor": 2}, "flash",
+        layers=MOE_8B_LAYERS, num_experts=MOE_8B_EXPERTS, grads_of=MOE_GRADS,
+        grad_rtol=MOE_8B_GRAD_RTOL)
+    gc.collect()
+    torch.cuda.empty_cache()
     parallel_checks_phase(dev, attn)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2564,6 +2778,15 @@ def main():
     check(int8["forward_shape"] == moe["forward_shape"]
           == openai["forward_shape"] == serving["forward_shape"],
           "serving paths' shapes")
+    # MoE served over the mesh gives K1 and K4 the shapes of serve_8b_tp2's
+    # ranks ({"tensor": 2}: 16 / 4 heads) and of serve_8b ({"expert": 2}:
+    # every head), which the checks below hold.
+    check(moe_mesh["tensor2"]["forward_shape"] == tp["forward_shape"]
+          and moe_mesh["tensor2"]["heads"] == (16, 4)
+          and moe_mesh["expert2"]["forward_shape"]
+          == serving["forward_shape"]
+          and moe_mesh["expert2"]["heads"] == (32, 8),
+          "MoE mesh serving shapes")
 
     # Every kernel at the shapes its main path gave it: K1 and K4 at the
     # serving path's teacher-forced forward and decode, K1, K2 and K3 at the
@@ -2625,6 +2848,9 @@ def main():
                    "serve_openai": openai[n], "batch_8b": batch[n],
                    "serve_8b_tp2_per_rank": [c.get(n, 0) for c in
                                              tp["rank_launches"]],
+                   **{f"serve_moe_mesh_{label}_per_rank":
+                      [c.get(n, 0) for c in r["rank_launches"]]
+                      for label, r in moe_mesh.items()},
                    **{f"{name}_per_rank": [c.get(n, 0) for c in
                                            r["rank_launches"]]
                       for name, r in sharded.items()}}

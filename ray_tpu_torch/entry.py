@@ -2,8 +2,9 @@
 
 - entry(): the cacheless Llama forward, on one device;
 - dryrun_multigpu(n): one sharded training step over an n-rank mesh (ring
-  attention over its "seq" axis), then a pipeline over a "stage" axis, in n
-  rank processes (``dryrun_multichip``'s training and PP parts);
+  attention over its "seq" axis), then a pipeline over a "stage" axis and
+  a step of the MoE Llama over an "expert" axis, in n rank processes
+  (``dryrun_multichip``'s training, PP and EP parts);
 - train_on_ranks(): the sharded train step run for a few steps in one rank
   process per mesh device, with what each rank saw (its losses, shards,
   gradients, kernel launches, peak memory);
@@ -106,7 +107,8 @@ def train_rank(mesh: Mesh, rank: int, cfg: LlamaConfig, ids: np.ndarray,
            "index": {n: shards[n][1] for n in grads_of},
            "launches": {n: k.launches for n, k in kernels.items()},
            "heads": model.layers[0].self_attn.heads,
-           "kv_heads": model.layers[0].self_attn.kv_heads}
+           "kv_heads": model.layers[0].self_attn.kv_heads,
+           "experts": getattr(model.layers[0].mlp, "experts", None)}
     if want_params:
         out["params"] = {n: p.detach().cpu().numpy()
                          for n, p in params.items()}
@@ -334,28 +336,51 @@ def mesh_shape_for(n: int) -> Dict[str, int]:
     return shape
 
 
+def _dryrun_ids(n: int) -> np.ndarray:
+    """The dry run's batch: max(4, 2n) × 128 seeded ids of the tiny
+    vocabulary."""
+    return np.random.default_rng(1).integers(
+        0, LlamaConfig.tiny().vocab_size, (max(4, 2 * n), 128))
+
+
+def dryrun_ep_run(n: int) -> Dict[str, Any]:
+    """The EP part of the dry run of an even n, a run of ``train_job``:
+    one step of the tiny config with 2 experts (plain attention) over
+    {"expert": 2, "data": n/2}, the dry run's batch, AdamW at 1e-3, seed
+    0, weights by LLAMA_SHARDING."""
+    cfg = dataclasses.replace(LlamaConfig.tiny(), num_experts=2)
+    return {"shape": {"expert": 2, "data": n // 2}, "cfg": cfg,
+            "ids": _dryrun_ids(n), "steps": 1, "lr": 1e-3, "seed": 0}
+
+
+def check_loss(what: str, losses: Sequence[float]) -> float:
+    """The loss every rank reported; raises unless it is finite and the
+    same on every rank."""
+    loss = losses[0]
+    if not (math.isfinite(loss) and loss < 1e9 and len(set(losses)) == 1):
+        raise RuntimeError(f"{what}: bad losses {list(losses)}")
+    return loss
+
+
 def dryrun_multigpu(n: int, device=None) -> float:
-    """``dryrun_multichip``'s training and PP parts, each rank a process on
-    ``device`` (the card unless named). One sharded training step over an
-    n-rank mesh (``mesh_shape_for``; ring attention where its "seq" axis is
-    above 1): the tiny config, a batch of max(4, 2n) × 128 seeded ids,
-    AdamW at 1e-3, weights by LLAMA_SHARDING. Then, for an even n, on a
-    rank job of its own, ``pipeline_apply`` of tanh(x @ w + b) over
-    {"stage": 2, "data": n/2}: h 16, ws 0.1, bs 0, xs ones [4, 2, 16].
-    Raises unless the loss is finite and the same on every rank and the
-    pipeline's output has xs's shape; returns the loss. The EP part
-    (expert parallelism) is not ported yet."""
+    """``dryrun_multichip``'s training, PP and EP parts, each rank a
+    process on ``device`` (the card unless named). One sharded training
+    step over an n-rank mesh (``mesh_shape_for``; ring attention where its
+    "seq" axis is above 1): the tiny config, a batch of max(4, 2n) × 128
+    seeded ids, AdamW at 1e-3, weights by LLAMA_SHARDING. Then, for an even
+    n, on a rank job of its own, ``pipeline_apply`` of tanh(x @ w + b) over
+    {"stage": 2, "data": n/2} (h 16, ws 0.1, bs 0, xs ones [4, 2, 16]) and
+    one step of the tiny MoE Llama over {"expert": 2, "data": n/2}
+    (``dryrun_ep_run``). Raises unless each loss is finite and the same on
+    every rank and the pipeline's output has xs's shape; returns the first
+    step's loss."""
     shape = mesh_shape_for(n)
     cfg = dataclasses.replace(
         LlamaConfig.tiny(),
         attention_impl="ring" if shape.get("seq", 1) > 1 else "reference")
-    ids = np.random.default_rng(1).integers(0, cfg.vocab_size,
-                                            (max(4, 2 * n), 128))
-    losses = [r["losses"][0] for r in train_on_ranks(
-        shape, cfg, ids, 1, 1e-3, device=device, seed=0)]
-    loss = losses[0]
-    if not (math.isfinite(loss) and loss < 1e9 and len(set(losses)) == 1):
-        raise RuntimeError(f"dryrun_multigpu({n}): bad losses {losses}")
+    loss = check_loss(f"dryrun_multigpu({n})", [
+        r["losses"][0] for r in train_on_ranks(
+            shape, cfg, _dryrun_ids(n), 1, 1e-3, device=device, seed=0)])
     print(f"dryrun_multigpu({n}): mesh={shape} loss={loss:.4f}")
     if n % 2 == 0:
         h = 16
@@ -364,10 +389,15 @@ def dryrun_multigpu(n: int, device=None) -> float:
                   np.ones((4, 2, h), np.float32)]
         pp = {"stage": 2, "data": n // 2}
         job = train_job([{"fn": "pipeline", "shape": pp, "inputs": inputs,
-                          "grads": False}], device=device)
-        shapes = {r[0]["out"].shape for r in job.results()}
+                          "grads": False}, dryrun_ep_run(n)], device=device)
+        res = job.results()
+        shapes = {r[0]["out"].shape for r in res}
         if shapes != {inputs[2].shape}:
             raise RuntimeError(f"dryrun_multigpu({n}): pipeline output "
                                f"shapes {shapes}, want {inputs[2].shape}")
         print(f"dryrun_multigpu({n}): PP mesh {{'stage': 2}} ok")
+        moe_loss = check_loss(f"dryrun_multigpu({n}) EP",
+                              [r[1]["losses"][0] for r in res])
+        print(f"dryrun_multigpu({n}): EP mesh {{'expert': 2}} "
+              f"moe_loss={moe_loss:.4f}")
     return loss

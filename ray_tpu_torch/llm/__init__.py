@@ -1,7 +1,8 @@
 """ray_tpu_torch.llm — LLM serving and batch inference on the port
 (counterpart of ray_tpu/llm): a continuous-batching engine over a paged KV
 cache (_internal/engine.py, _internal/paged.py), the LLMServer that hosts one
-engine replica (tensor-parallel over rank processes: _internal/tp.py), the OpenAI-compatible surface over it (OpenAIServer), batch
+engine replica (tensor- and expert-parallel over rank processes:
+_internal/tp.py), the OpenAI-compatible surface over it (OpenAIServer), batch
 inference (Processor, whose engine stage runs on a dict of numpy columns)
 and the byte-level BPE tokenizer with its chat template.
 

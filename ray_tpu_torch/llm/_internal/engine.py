@@ -38,7 +38,6 @@ from ray_tpu_torch.llm._internal.paged import (
     PrefixCache,
 )
 from ray_tpu_torch.llm._internal.runner import ModelRunner, to_host
-from ray_tpu_torch.models.llama import tensor_parallel
 from ray_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -109,7 +108,7 @@ class StepOutput:
 
 
 # A dispatched decode window: tokens [K,B], final last_tokens [B], final
-# seq_lens [B] (all on the device; under TP a pending reply of the ranks and
+# seq_lens [B] (all on the device; over ranks a pending reply of the ranks and
 # handles of their device state), logprob arrays or None, and the slot set
 # it was dispatched for.
 _Window = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Any, frozenset]
@@ -132,20 +131,22 @@ class LLMEngine:
     the whole tree. Runs on ``device``: the card unless the caller names
     one.
 
-    Tensor parallel: pass ``mesh`` (parallel/mesh.py) with a "tensor" axis
-    of size N > 1. The device half then runs in N rank processes on the
-    mesh's devices (llm/_internal/tp.py), each over its shard of the model
-    (``LLAMA_SHARDING``: heads/mlp/vocab over tensor) and of the paged KV
-    cache (its kv heads); ``model`` gives only the config (build it on the
-    meta device), and ``params`` must be a full state dict (each rank keeps
-    its slice) or ``SeededParams``. This engine keeps the scheduler, the
-    page allocator and the host mirrors, and sends each dispatch's host
-    inputs to every rank; rank 0 samples and returns the tokens.
-    ``tp_backend``: "nccl" (default when every rank has its own card) or
-    "gloo" (the CPU's, and the only one for ranks that share a card; it
-    must then be named). LoRA, param_transform (int8) and MoE are not
-    ported under TP; nor is a mesh axis other than "tensor" (raises).
-    ``close()`` stops the ranks.
+    Tensor and expert parallel: pass ``mesh`` (parallel/mesh.py) of N > 1
+    ranks whose axes above 1 are "tensor" and/or "expert". The device half
+    then runs in N rank processes on the mesh's devices
+    (llm/_internal/tp.py), each over its shard of the model
+    (``LLAMA_SHARDING``: heads/mlp/vocab over tensor, an MoE model's
+    experts over expert) and of the paged KV cache (its kv heads: split
+    over "tensor", replicated over "expert"); ``model`` gives only the
+    config (build it on the meta device), and ``params`` must be a full
+    state dict (each rank keeps its slice) or ``SeededParams``. This engine
+    keeps the scheduler, the page allocator and the host mirrors, and sends
+    each dispatch's host inputs to every rank; rank 0 samples and returns
+    the tokens. ``tp_backend``: "nccl" (default when every rank has its own
+    card) or "gloo" (the CPU's, and the only one for ranks that share a
+    card; it must then be named). LoRA and param_transform (int8) are not
+    ported over ranks; nor is a mesh axis other than "tensor" and "expert"
+    (each raises). ``close()`` stops the ranks.
     """
 
     def __init__(self, model, params, cfg: EngineConfig,
@@ -159,14 +160,16 @@ class LLMEngine:
             max_pages_per_seq=cfg.max_pages_per_seq)
         if mesh is not None:
             other = {ax: n for ax, n in zip(mesh.axis_names, mesh.shape)
-                     if ax != "tensor" and n > 1}
+                     if ax not in ("tensor", "expert") and n > 1}
             if other:
                 raise NotImplementedError(
                     f"serving over mesh axes {other} is not ported: the "
-                    "engine serves over a \"tensor\" axis; data and fsdp "
-                    "axes are the sharded-training step's (train/step.py)")
-        self.tp = tensor_parallel(mesh, rank=0)
-        if self.tp is None:
+                    "engine serves over \"tensor\" and \"expert\" axes; "
+                    "data and fsdp axes are the sharded-training step's "
+                    "(train/step.py)")
+        # Whether the device half runs in rank processes.
+        self.ranked = mesh is not None and mesh.size > 1
+        if not self.ranked:
             self.runner = ModelRunner(model, params, cfg, self.cache_cfg,
                                       param_transform, device)
             self.device = self.runner.device
@@ -178,14 +181,14 @@ class LLMEngine:
         else:
             unported = {"LoRA (lora_rank > 0)": cfg.lora_rank > 0,
                         "param_transform (int8 weights)":
-                            param_transform is not None,
-                        "MoE (num_experts > 0)": mcfg.num_experts > 0}
+                            param_transform is not None}
             for what, on in unported.items():
                 if on:
                     raise NotImplementedError(
-                        f"{what} under tensor parallelism is not ported")
+                        f"{what} under tensor or expert parallelism is not "
+                        "ported")
             if params is None:
-                raise ValueError("a tensor-parallel engine needs params: a "
+                raise ValueError("an engine over a mesh needs params: a "
                                  "full state dict or SeededParams")
             from ray_tpu_torch.llm._internal.tp import TPRunner
 
@@ -224,9 +227,9 @@ class LLMEngine:
         self.runner._weights = weights
 
     def close(self) -> None:
-        """Stop the rank processes of a tensor-parallel engine (a no-op
+        """Stop the rank processes of an engine over a mesh (a no-op
         otherwise)."""
-        if self.tp is not None:
+        if self.ranked:
             self.runner.close()
 
     # ------------------------------------------------------------------
@@ -276,7 +279,7 @@ class LLMEngine:
 
     def _host(self, toks, lp):
         """A dispatch's tokens and logprobs on the host (blocks)."""
-        if self.tp is not None:
+        if self.ranked:
             return toks.get()
         return to_host(toks, lp)
 

@@ -5,10 +5,11 @@ per-slot sampling generators and the LoRA banks, and runs one dispatch at a
 time: a batched prefill, a decode window of K steps, or a cacheless forward,
 sampling included. Its inputs are the host arrays the scheduler builds (or,
 for a chained decode window, the previous window's device outputs), so the
-same object serves the engine in its own process and each rank process of a
-tensor-parallel engine (llm/_internal/tp.py). A TP rank runs over its shard
-of the model (``model.tp``): only rank 0 samples, and at every decode step
-its tokens are broadcast to the other ranks, whose next step reads them.
+same object serves the engine in its own process and each rank process of an
+engine over a mesh (llm/_internal/tp.py). A rank runs over its shard of the
+model (``model.mesh``, ``model.rank``): only rank 0 samples, and at every
+decode step its tokens are broadcast to the other ranks, whose next step
+reads them.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ray_tpu_torch.llm._internal.paged import (
     PagedCacheConfig,
@@ -37,12 +39,12 @@ from ray_tpu_torch.utils.device import resolve_device
 @dataclasses.dataclass(frozen=True)
 class SeededParams:
     """Weights that ``init_params`` draws from ``seed`` on the device that
-    holds them (a TP rank draws each full parameter and keeps its slice)."""
+    holds them (a mesh rank draws each full parameter and keeps its slice)."""
     seed: int
 
 
 class ModelRunner:
-    """``params``: a state dict (arrays or tensors; a TP shard takes its
+    """``params``: a state dict (arrays or tensors; a mesh shard takes its
     slice of a full one), ``SeededParams``, or None to use the model's own
     weights. With ``param_transform`` the runner keeps ``params`` as given
     on the device and runs every forward on ``param_transform(params)`` (one
@@ -57,7 +59,10 @@ class ModelRunner:
         self.param_transform = param_transform
         self.params = None
         self._weights: Optional[WeightsAtUse] = None
-        self.tp = getattr(model, "tp", None)
+        mesh = getattr(model, "mesh", None)
+        # Whether this runner is one of a mesh's rank processes.
+        self.ranked = mesh is not None and mesh.size > 1
+        self.rank = model.rank if self.ranked else 0
         if param_transform is not None:
             self.model = model
             self.params = tree_to(params, self.device)
@@ -84,9 +89,9 @@ class ModelRunner:
 
     @property
     def samples(self) -> bool:
-        """Whether this runner samples tokens (every runner but TP ranks
-        other than 0)."""
-        return self.tp is None or self.tp.rank == 0
+        """Whether this runner samples tokens (every runner but the ranks
+        of a mesh other than 0)."""
+        return self.rank == 0
 
     def seed(self, slot: int, seed: int) -> None:
         self._gens[slot].manual_seed(seed)
@@ -212,7 +217,7 @@ class ModelRunner:
         page_table [B,MP] and the slots' control state (active, temps,
         top_ps, top_ks, lora_idx [B]) are host arrays, copied now. Returns
         (tokens [K,B], final last_tokens [B], final seq_lens [B], logprob
-        arrays or None), on the device; a TP rank other than 0 returns no
+        arrays or None), on the device; a mesh rank other than 0 returns no
         tokens of its own (None) but the final last_tokens it decoded."""
         B = self.cfg.max_seqs
         K = max(1, self.cfg.decode_steps)
@@ -250,8 +255,8 @@ class ModelRunner:
             else:
                 toks = torch.empty((B,), dtype=torch.int32,
                                    device=self.device)
-            if self.tp is not None:
-                self.tp.broadcast(toks)
+            if self.ranked:
+                dist.broadcast(toks, 0)
             lens = lens + 1
         # Final last_tokens/seq_lens feed the NEXT window's dispatch without
         # a host round trip (pipeline_dispatch).
@@ -264,7 +269,7 @@ class ModelRunner:
         ids [nb, bucket] = each prompt's SUFFIX from absolute position
         starts[i] (>0 when a cached prefix run was shared into its
         page-table row); causal within each sequence. Host arrays in,
-        device tokens out (None, None on a TP rank other than 0)."""
+        device tokens out (None, None on a mesh rank other than 0)."""
         nb, bucket = ids.shape
         positions = (self._dev(starts)[:, None]
                      + torch.arange(bucket, device=self.device)[None, :])

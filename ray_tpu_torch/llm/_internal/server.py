@@ -5,9 +5,9 @@ The engine runs on a dedicated thread; request handlers enqueue work and
 stream tokens back through per-request queues. The Serve deployment around
 it (``build_llm_deployment``) waits for the slice that ports Serve's glue.
 
-``tensor_parallel_size=N`` (or a port ``Mesh`` under "mesh") serves through N
-rank processes (llm/_internal/tp.py), as the reference's engine shards over
-its mesh.
+``tensor_parallel_size=N`` (or a port ``Mesh`` under "mesh", whose axes
+above 1 are "tensor" and/or "expert") serves through N rank processes
+(llm/_internal/tp.py), as the reference's engine shards over its mesh.
 """
 
 from __future__ import annotations
@@ -188,7 +188,7 @@ class LLMServer:
         self._thread.join(timeout)
 
     def close(self, timeout: float = 30.0) -> None:
-        """Stop the engine thread, then the engine's tensor-parallel ranks:
+        """Stop the engine thread, then the engine's rank processes:
         each destroys its process group and exits, and any left after the
         runner's deadline is killed."""
         self.shutdown(timeout)

@@ -19,9 +19,12 @@ under ``torch.utils.checkpoint`` (flax's ``nn.remat``): its activations are
 recomputed in the backward, so K1 runs twice per layer and step.
 
 ``cfg.num_experts > 0`` swaps each layer's SwiGLU MLP for the switch-routed
-``MoEMlp`` of models/moe.py. ``forward(..., weights=)`` takes each module's
-weights from a ``WeightsAtUse`` (models/quant.py) at its point of use instead
-of from the module: the serving path of an int8 state dict.
+``MoEMlp`` of models/moe.py; over an "expert" axis each rank holds its
+experts (expert parallelism, parallel/ep.py), under "tensor" each expert's
+"mlp" part, under "fsdp" each expert kernel's "embed_fsdp" part.
+``forward(..., weights=)`` takes each module's weights from a
+``WeightsAtUse`` (models/quant.py) at its point of use instead of from the
+module: the serving path of an int8 state dict.
 
 ``LlamaModel(cfg, mesh=)`` with a "tensor" axis of size N builds one rank's
 shard of the model (megatron-style TP, ``LLAMA_SHARDING``): attention holds
@@ -34,9 +37,10 @@ gathered). A row-parallel partial is all-reduced in float32
 their gradient rules, so the shard trains. The mesh may also have "data"
 and "fsdp" axes (sharded training, train/step.py): ``place_params`` then
 keeps each parameter's part of its "fsdp" dim, gathered at its use
-(parallel/fsdp.py). A "seq" axis of size n splits the sequence: the rank
-holds tokens [c·S/n, (c+1)·S/n) at its coordinate c, rotates them by those
-global positions, and attends by ring attention over the axis
+(parallel/fsdp.py); attention, the norms, the embedding and ``lm_head``
+are replicated over "expert". A "seq" axis of size n splits the sequence:
+the rank holds tokens [c·S/n, (c+1)·S/n) at its coordinate c, rotates them
+by those global positions, and attends by ring attention over the axis
 (parallel/ring.py; ``attention_impl="ring"``, training only). A "stage"
 axis holds replicas: the reference's model does not use it. The rank runs
 inside a process group of ``mesh.size`` processes (llm/_internal/tp.py,
@@ -63,13 +67,14 @@ from ray_tpu_torch.ops.attention import (
     flash_attention,
 )
 from ray_tpu_torch.parallel.fsdp import FSDP, fsdp_dim, fsdp_of, place
-from ray_tpu_torch.parallel.mesh import Mesh, mesh_shape
+from ray_tpu_torch.parallel.mesh import Mesh
 from ray_tpu_torch.parallel.sharding import (
     ParamShardingRules,
     keep_axes,
     shard_index,
 )
-from ray_tpu_torch.parallel.tp import TensorParallel
+from ray_tpu_torch.parallel.ep import ExpertParallel, expert_parallel
+from ray_tpu_torch.parallel.tp import AxisParallel, TensorParallel
 from ray_tpu_torch.utils.device import resolve_device
 
 
@@ -135,10 +140,6 @@ LLAMA_SHARDING = ParamShardingRules([
 ])
 
 
-# Mesh axes a model may have above size 1: "expert" is not ported yet.
-MODEL_AXES = ("data", "fsdp", "stage", "seq", "tensor")
-
-
 def mesh_rank(mesh: Optional[Mesh], rank: Optional[int] = None) -> int:
     """``rank``, or this process's rank in its process group when the mesh
     has more than one rank (0 otherwise)."""
@@ -153,17 +154,9 @@ def tensor_parallel(mesh: Optional[Mesh], rank: Optional[int] = None
                     ) -> Optional[TensorParallel]:
     """The TP rank of mesh rank ``rank`` (None for no mesh or a tensor axis
     of 1). ``rank`` defaults to this process's rank in its process group.
-    An "expert" axis above 1 raises: expert parallelism is not ported
-    yet."""
+    A model takes every mesh axis (parallel/mesh.py's AXIS_ORDER)."""
     if mesh is None:
         return None
-    other = {ax: n for ax, n in mesh_shape(mesh).items()
-             if ax not in MODEL_AXES and n > 1}
-    if other:
-        raise NotImplementedError(
-            f"mesh axes {other} are not ported: a model's mesh takes "
-            f"{MODEL_AXES}; expert parallelism (\"expert\") comes in the "
-            "next slice")
     n = mesh.axis_size("tensor")
     if n == 1:
         return None
@@ -212,22 +205,25 @@ def _cast(w: torch.Tensor, dtype) -> torch.Tensor:
 
 
 class _AtUse:
-    """The weight of a module at its use, in ``compute_dtype``: gathered
+    """A weight of a module at its use, in ``compute_dtype``: gathered
     over the fsdp ranks when ``fsdp.place`` kept only a part of it
-    (``fsdp_dims``), and with its gradient summed over the tensor ranks
-    when ``sum_grad`` is set (a weight every TP rank holds whole but uses
-    in part)."""
+    (``fsdp_dims``), and with its gradient summed over the ranks of each
+    axis in ``sum_grad`` (a weight every rank holds whole but uses in
+    part: TP's kv projections, the MoE router under EP or TP)."""
 
     fsdp: Optional[FSDP] = None
-    sum_grad: Optional[TensorParallel] = None
+    sum_grad: Tuple[AxisParallel, ...] = ()
 
-    def weight_at_use(self) -> torch.Tensor:
-        dim = self.fsdp_dims.get("weight")
+    def weight_at_use(self, name: str = "weight") -> torch.Tensor:
+        p = getattr(self, name)
+        dim = self.fsdp_dims.get(name)
         if dim is None:
-            w = _cast(self.weight, self.compute_dtype)
+            w = _cast(p, self.compute_dtype)
         else:
-            w = self.fsdp.gather(self.weight, dim, self.compute_dtype)
-        return w if self.sum_grad is None else self.sum_grad.copy_in(w)
+            w = self.fsdp.gather(p, dim, self.compute_dtype)
+        for ax in self.sum_grad:
+            w = ax.copy_in(w)
+        return w
 
 
 class Linear(_AtUse, nn.Linear):
@@ -333,7 +329,7 @@ class Attention(nn.Module):
         if self.reduce and self.kv_heads == hk:
             # Every rank holds the kv heads whole and its query heads read
             # some: their gradients are summed over the ranks.
-            self.k_proj.sum_grad = self.v_proj.sum_grad = tp
+            self.k_proj.sum_grad = self.v_proj.sum_grad = (tp,)
 
     def forward(self, x, positions, kv_cache=None, cache_index=None,
                 paged=None, lora=None, lora_idx=None):
@@ -446,7 +442,8 @@ class Mlp(nn.Module):
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None, param_dtype=None,
                  tp: Optional[TensorParallel] = None,
-                 ring: Optional[Tuple[Mesh, int]] = None):
+                 ring: Optional[Tuple[Mesh, int]] = None,
+                 ep: Optional[ExpertParallel] = None):
         super().__init__()
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
                                        cfg.dtype, device)
@@ -458,7 +455,7 @@ class DecoderLayer(nn.Module):
 
             self.mlp = MoEMlp(cfg.hidden_size, cfg.intermediate_size,
                               cfg.num_experts, cfg.moe_capacity_factor,
-                              cfg.dtype, device, param_dtype)
+                              cfg.dtype, device, param_dtype, tp, ep)
         else:
             self.mlp = Mlp(cfg, device, param_dtype, tp)
 
@@ -491,8 +488,9 @@ class LlamaModel(nn.Module):
     its "tensor" part at construction, its "fsdp" part by ``place_params``.
     ``specs`` holds each parameter's spec on the mesh as it is placed. A
     "seq" axis above 1 needs ``attention_impl="ring"`` and runs the
-    cacheless forward only; MoE layers are not ported under TP, FSDP or a
-    "seq" axis (each raises)."""
+    cacheless forward only; MoE layers over it are not ported (raises):
+    a token's place in its expert's buffer counts along the whole
+    sequence. An "expert" axis splits the MoE layers' experts."""
 
     def __init__(self, cfg: LlamaConfig, device=None, param_dtype=None,
                  mesh: Optional[Mesh] = None, rank: Optional[int] = None):
@@ -515,19 +513,19 @@ class LlamaModel(nn.Module):
                     f"which only attention_impl=\"ring\" attends over; got "
                     f"{cfg.attention_impl!r}")
             ring = (mesh, self.rank)
-        if ((tp is not None or self.fsdp is not None or ring is not None)
-                and cfg.num_experts > 0):
+        if ring is not None and cfg.num_experts > 0:
             raise NotImplementedError(
-                "MoE layers under tensor parallelism, FSDP or a \"seq\" axis "
-                "are not ported (expert parallelism comes in the next "
-                "slice)")
+                "MoE layers over a \"seq\" axis are not ported: a token's "
+                "place in its expert's buffer counts along the whole "
+                "sequence")
+        self.ep = ep = expert_parallel(mesh, self.rank)
         v0, v1 = tp.part(cfg.vocab_size) if tp else (0, cfg.vocab_size)
         self.vocab0 = v0
         self.vocab_parallel = v1 - v0 < cfg.vocab_size
         self.embed_tokens = Embedding(v1 - v0, cfg.hidden_size, cfg.dtype,
                                       param_dtype, device)
         self.layers = nn.ModuleList(
-            [DecoderLayer(cfg, device, param_dtype, tp, ring)
+            [DecoderLayer(cfg, device, param_dtype, tp, ring, ep)
              for _ in range(cfg.num_layers)])
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype,
                             device)
@@ -536,8 +534,8 @@ class LlamaModel(nn.Module):
         # The kv heads a layer holds, and so a rank's paged KV cache.
         k0, k1 = tp.part(cfg.num_kv_heads) if tp else (0, cfg.num_kv_heads)
         self.kv_heads = k1 - k0
-        # The tensor part of LLAMA_SHARDING's specs: what the modules above
-        # hold.
+        # The tensor and expert parts of LLAMA_SHARDING's specs: what the
+        # modules above hold.
         self.specs = {} if mesh is None else _rule_specs(self, None)
 
     def _embed(self, input_ids):
@@ -579,10 +577,11 @@ class LlamaModel(nn.Module):
             positions = start + torch.arange(input_ids.shape[1],
                                              device=device)
         if weights is not None and (self.tp is not None
-                                    or self.fsdp is not None):
+                                    or self.fsdp is not None
+                                    or self.ep is not None):
             raise NotImplementedError(
-                "weights at use (int8) under tensor parallelism or FSDP are "
-                "not ported")
+                "weights at use (int8) under tensor or expert parallelism "
+                "or FSDP are not ported")
         # Gather rows, then cast: the same values as casting the table first.
         if weights is None:
             x = self._embed(input_ids)
@@ -622,17 +621,23 @@ class LlamaModel(nn.Module):
         return logits
 
 
+# The mesh axes a model's modules split at construction; place_params adds
+# "fsdp".
+BUILT_AXES = ("tensor", "expert")
+
+
 def _rule_specs(model: LlamaModel, rules: Optional[ParamShardingRules]
                 ) -> Dict[str, Any]:
     """{name: spec under ``rules`` on the model's mesh} for every parameter
-    (no rules: LLAMA_SHARDING's "tensor" part, the model's TP layout)."""
+    (no rules: LLAMA_SHARDING's "tensor" and "expert" parts, the layout the
+    model is built with)."""
     full = LlamaModel(model.cfg, device="meta")
     blocks = {"heads": model.cfg.head_dim}
     if rules is not None:
         return {n: rules.spec(n, p.shape, model.mesh, blocks)
                 for n, p in full.named_parameters()}
     return {n: keep_axes(LLAMA_SHARDING.spec(n, p.shape, model.mesh, blocks),
-                         ("tensor",))
+                         BUILT_AXES)
             for n, p in full.named_parameters()}
 
 
@@ -671,8 +676,8 @@ def place_params(model: LlamaModel,
     ``rules`` place them (``rules.spec`` of each, as the reference applies
     any rules; None places nothing over fsdp): each keeps this rank's part
     of the dim whose spec names "fsdp", and its module gathers the whole at
-    use (parallel/fsdp.py). The tensor part of every spec must be what the
-    model holds (its TP layout is built at construction), and the
+    use (parallel/fsdp.py). The tensor and expert parts of every spec must
+    be what the model holds (they are built at construction), and the
     optimizer over these parameters must not have stepped yet. Placing
     again by the same rules changes nothing; by other rules raises."""
     if model.mesh is None:
@@ -682,19 +687,20 @@ def place_params(model: LlamaModel,
     modules = dict(model.named_modules())
     for n in changed:
         have, want = model.specs[n], specs[n]
-        if keep_axes(want, ("tensor",)) != keep_axes(have, ("tensor",)):
+        if keep_axes(want, BUILT_AXES) != keep_axes(have, BUILT_AXES):
             raise ValueError(
-                f"{n}: the rules shard it over \"tensor\" as {want}, the "
+                f"{n}: the rules shard it over {BUILT_AXES} as {want}, the "
                 f"model as {have} (its layout is LLAMA_SHARDING's)")
         if fsdp_dim(have) is not None:
             raise ValueError(f"{n} is placed as {have}; the rules place it "
                              f"as {want}")
         owner, _, attr = n.rpartition(".")
-        if (keep_axes(want, ("tensor", "fsdp")) != want
+        if (keep_axes(want, BUILT_AXES + ("fsdp",)) != want
                 or not hasattr(modules[owner], "fsdp_dims")):
             raise NotImplementedError(
                 f"{n}: placing it as {want} is not ported (only Linear and "
-                "Embedding weights shard, over \"fsdp\")")
+                "Embedding weights and MoE expert kernels shard, over "
+                "\"fsdp\")")
     for n in changed:
         owner, _, attr = n.rpartition(".")
         place(modules[owner], attr, fsdp_dim(specs[n]), model.fsdp)

@@ -18,8 +18,10 @@ to start, and an answer of hundreds of MB is not streamed through a
 socket. Both hold plain Python and numpy objects written by this module.
 
 A rank that exits, fails, or does not answer within the timeout fails the
-job: every rank is stopped and the caller raises. After ``close()`` no rank
-process and no rendezvous directory is left.
+job: every rank is stopped and the caller raises, with the traceback of
+every rank that failed (the peers of a rank that dies fail in their next
+collective). After ``close()`` no rank process and no rendezvous directory
+is left.
 """
 
 from __future__ import annotations
@@ -47,6 +49,8 @@ from ray_tpu_torch.parallel.mesh import Mesh
 
 # A job's answer must arrive within this unless the caller gives another.
 TIMEOUT_S = 900.0
+# A failed rank's answer.
+_FAILED = object()
 STOP_TIMEOUT_S = 30.0
 POLL_S = 0.05
 
@@ -62,6 +66,7 @@ class RankJob:
         self.backend = resolve_backend(mesh.devices, backend)
         self._procs: List[subprocess.Popen] = []
         self._conns: List[Connection] = []
+        self._tracebacks: Dict[int, str] = {}
         self._dir = tempfile.mkdtemp(prefix="ray_tpu_torch_ranks_")
         threads = max(1, torch.get_num_threads() // mesh.size)
         spec = {"target": target, "kwargs": kwargs or {}, "mesh": mesh,
@@ -96,19 +101,22 @@ class RankJob:
                 while not conn.poll(POLL_S):
                     for q, p in enumerate(self._procs):
                         if p.poll() is not None and p.returncode != 0:
-                            self._answer(q)  # its traceback, if it sent one
-                            raise RankError(f"rank {q} exited with code "
-                                            f"{p.returncode}")
+                            raise self._failure(f"rank {q} exited with "
+                                                f"code {p.returncode}")
                     if time.monotonic() > deadline:
                         raise RankError(f"rank {r} did not answer within "
                                         f"{timeout:.0f} s")
                 out.append(self._answer(r))
+                if out[-1] is _FAILED:
+                    raise self._failure(f"rank {r} failed")
             done = True
             return out
         finally:
             self.close(graceful=done)
 
     def _answer(self, r: int) -> Any:
+        """Rank r's result; ``_FAILED`` (its traceback kept) when it
+        failed."""
         conn = self._conns[r]
         try:
             if not conn.poll(0):
@@ -118,8 +126,26 @@ class RankJob:
         except (EOFError, OSError):
             raise RankError(f"rank {r} closed its connection")
         if not ok:
-            raise RankError(f"rank {r} failed:\n{payload}")
+            self._tracebacks[r] = payload
+            return _FAILED
         return payload
+
+    def _failure(self, what: str) -> RankError:
+        """A RankError naming ``what`` with the traceback of every rank
+        that has failed once the others had ``STOP_TIMEOUT_S`` to exit."""
+        deadline = time.monotonic() + STOP_TIMEOUT_S
+        while (any(p.poll() is None for p in self._procs)
+               and time.monotonic() < deadline):
+            time.sleep(POLL_S)
+        for r, conn in enumerate(self._conns):
+            if r not in self._tracebacks and not conn.closed:
+                try:
+                    self._answer(r)
+                except RankError:
+                    pass
+        return RankError(what + "".join(
+            f"\nrank {r} failed:\n{tb}"
+            for r, tb in sorted(self._tracebacks.items())))
 
     def close(self, graceful: bool = False) -> None:
         """Kill the ranks (``graceful``: those still there after

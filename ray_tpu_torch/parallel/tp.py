@@ -1,6 +1,8 @@
-"""The collectives of one tensor-parallel rank (megatron-style TP over the
-mesh's "tensor" axis), over the ranks of its line along that axis
-(``mesh.axis_group``; the default group when the mesh has no other axis).
+"""The collectives of one rank along a model-parallel mesh axis, over the
+ranks of its line along that axis (``mesh.axis_group``; the default group
+when the mesh has no other axis): ``AxisParallel``, of which
+``TensorParallel`` (megatron-style TP over "tensor") and ``ExpertParallel``
+(parallel/ep.py, over "expert") are the two.
 
 Which part of a dim a rank holds follows the sharding rules: a dim of n
 units splits into ``size`` equal parts when ``size`` divides n and is
@@ -26,7 +28,7 @@ compute with it:
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import ClassVar, Tuple
 
 import torch
 import torch.distributed as dist
@@ -88,14 +90,15 @@ class _GatherLast(torch.autograd.Function):
 
 
 @dataclasses.dataclass(frozen=True)
-class TensorParallel:
+class AxisParallel:
     size: int
-    rank: int  # this rank's coordinate on the "tensor" axis
+    rank: int  # this rank's coordinate on the axis
     mesh: Mesh
+    axis: ClassVar[str]
 
     @property
     def group(self):
-        return axis_group(self.mesh, "tensor")
+        return axis_group(self.mesh, self.axis)
 
     def part(self, n: int) -> Tuple[int, int]:
         """[lo, hi) of the n units of a dim that this rank holds: its
@@ -116,13 +119,12 @@ class TensorParallel:
             return x
         return _CopyIn.apply(x, self.group)
 
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel(AxisParallel):
+    axis: ClassVar[str] = "tensor"
+
     def gather_last(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank's ``x`` concatenated along the last dim, in rank
         order; the gradient keeps this rank's part."""
         return _GatherLast.apply(x, self.group, self.size, self.rank)
-
-    def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
-        """Rank ``src``'s ``x`` on every rank, in place (``src`` a rank of
-        the default group)."""
-        dist.broadcast(x, src)
-        return x

@@ -1,5 +1,5 @@
 """Training core: the train step for the port's models, on one device or
-sharded over a mesh (DP, FSDP, TP and SP).
+sharded over a mesh (DP, FSDP, TP, SP and EP).
 
 Port of ray_tpu/train/step.py. The JAX step is a pure jitted function of
 (params, opt_state); here the state holds the model and its optimizer,
@@ -28,6 +28,13 @@ B_local·(S-1), and the seq ranks' sums add up to the rows' mean; the
 parameters are replicated over "seq", so their gradients are summed over
 it. Ranks along "stage" are replicas here (the reference's model does not
 use that axis) and need no reduction.
+
+Ranks along "expert" hold the same rows, as the reference shards "batch"
+over ("data", "fsdp") only; they need no reduction either. Each holds its
+experts (models/moe.py), whose gradients are its own; every other
+gradient is already whole and the same on each of them, since the MoE
+layer sums its partial output, its input's gradient and its router's
+gradient over the expert group.
 """
 
 from __future__ import annotations
@@ -216,6 +223,10 @@ def make_train_step(
             loss = _nll(logits[:, :n], labels).sum() / count
         else:
             loss = cross_entropy_loss(logits[:, :-1], labels[:, 1:])
+        # The loss's graph keeps what its backward reads (the f32
+        # log-softmax); the logits themselves (B·S·V in cfg.dtype: 1.05 GB
+        # at the 8B widths) need not live through the backward.
+        del logits
         loss.backward()
         if mesh is not None:
             _reduce_grads(model, mesh)
@@ -269,7 +280,8 @@ def init_train_state(
             raise ValueError("the optimizer has stepped: place the "
                              "parameters before its first step")
         _rows(mesh, model.rank, sample_input)
-        for ax in ("data", "fsdp", "seq", "tensor"):  # every rank, one order
+        # Every rank, one order.
+        for ax in ("data", "fsdp", "expert", "seq", "tensor"):
             if mesh.axis_size(ax) > 1:
                 axis_group(mesh, ax)
         place_params(model, param_rules)

@@ -245,8 +245,8 @@ def test_unported_branches_raise(tiny):
     the reference's ring model without a mesh, and as the port's
     "reference" path exactly. A mesh with a "seq" axis above 1 is taken by
     the ring model (ring attention) and refused with another impl, and a
-    KV cache over it raises; an "expert" axis above 1 raises until expert
-    parallelism is ported."""
+    KV cache over it raises, and so do MoE layers over it; an "expert"
+    axis above 1 splits an MoE model's experts (expert parallelism)."""
     japply, jparams, ring = _models(tiny, "ring")
     _, _, plain = _models(tiny, "reference")
     ids = np.random.default_rng(5).integers(0, 128, (2, 12), dtype=np.int32)
@@ -265,9 +265,12 @@ def test_unported_branches_raise(tiny):
            cache_index=0)
     with pytest.raises(NotImplementedError, match="attention_impl"):
         tllama.LlamaModel(plain.cfg, device="meta", mesh=mesh, rank=0)
+    moe = dataclasses.replace(ring.cfg, num_experts=2)
+    with pytest.raises(NotImplementedError, match="MoE layers over"):
+        tllama.LlamaModel(moe, device="meta", mesh=mesh, rank=0)
     expert = create_mesh({"expert": 2}, devices=[torch.device("cpu")] * 2)
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
-        tllama.LlamaModel(ring.cfg, device="meta", mesh=expert, rank=0)
+    ep = tllama.LlamaModel(moe, device="meta", mesh=expert, rank=1)
+    assert ep.layers[0].mlp.experts == (1, 2)
 
 
 def test_init_params_is_seeded():

@@ -1,7 +1,7 @@
 """Port parity for parallel/mesh.py and parallel/sharding.py (no processes):
 mesh sizes and errors, specs, and each TP rank's shard of a converted tree,
 against ray_tpu.parallel over the 8 virtual CPU devices (tests/conftest.py).
-Also the refusals of tensor-parallel serving that need no rank process.
+Also the refusals of serving over a mesh that need no rank process.
 
 Grids run as loops inside a few tests (each failure names its case): the
 file stays smaller than the suite's large files, so pytest-xdist's
@@ -250,29 +250,54 @@ def test_server_on_one_card_without_backend_raises(monkeypatch):
         LLMServer(dict(TINY, tensor_parallel_size=2), device="cuda")
 
 
-def test_unported_tensor_parallel_combinations_raise():
-    """Combinations the reference serves under TP that the port refuses,
+def test_unported_tensor_parallel_combinations_raise(monkeypatch):
+    """Combinations the reference serves over a mesh that the port refuses,
     before any rank process starts (ROADMAP Queue 3): a mesh axis other
-    than "tensor", LoRA, int8 (a param_transform) and MoE."""
+    than "tensor" and "expert", and LoRA and int8 (a param_transform) over
+    "tensor" or "expert" ranks, MoE model or not. MoE at {"tensor": 2} and
+    {"expert": 2} passes these checks and reaches the rank runner (a stub
+    here; tests/test_torch_ep.py serves it over rank processes)."""
+    from ray_tpu_torch.llm._internal import tp as ttp
+
+    class Runner:
+        def __init__(self, model_cfg, params, cfg, cache_cfg, mesh,
+                     backend=None):
+            reached.append((model_cfg.num_experts, dict(
+                (a, n) for a, n in zip(mesh.axis_names, mesh.shape)
+                if n > 1)))
+
+    reached = []
+    monkeypatch.setattr(ttp, "TPRunner", Runner)
     tiny = tllama.LlamaConfig.tiny(vocab_size=128)
+    moe = dataclasses.replace(tiny, num_experts=4)
     for what in ("mesh_axis", "lora", "int8", "moe"):
-        cfg = tiny
-        mesh = tmesh.create_mesh({"tensor": 2}, devices=[CPU] * 2)
-        kw = {}
-        if what == "mesh_axis":
-            mesh = tmesh.create_mesh({"data": 2, "tensor": 2},
-                                     devices=[CPU] * 4)
-        elif what == "lora":
-            kw["ecfg"] = {"lora_rank": 2}
-        elif what == "int8":
-            kw["param_transform"] = lambda p: p
-        else:
-            cfg = dataclasses.replace(tiny, num_experts=4)
-        match = "sharded-training" if what == "mesh_axis" else "not ported"
-        with pytest.raises(NotImplementedError, match=match):
-            LLMEngine(tllama.LlamaModel(cfg, device="meta"), {},
-                      EngineConfig(max_seqs=2, page_size=4,
-                                   max_pages_per_seq=4,
-                                   **kw.get("ecfg", {})),
-                      param_transform=kw.get("param_transform"), mesh=mesh,
-                      device="cpu")
+        for shape in ({"tensor": 2}, {"expert": 2}):
+            cfg = moe if shape.get("expert") else tiny
+            mesh = tmesh.create_mesh(shape, devices=[CPU] * 2)
+            kw = {}
+            if what == "mesh_axis":
+                mesh = tmesh.create_mesh({"data": 2, **shape},
+                                         devices=[CPU] * 4)
+            elif what == "lora":
+                kw["ecfg"] = {"lora_rank": 2}
+            elif what == "int8":
+                kw["param_transform"] = lambda p: p
+            else:
+                cfg = moe
+
+            def engine():
+                return LLMEngine(tllama.LlamaModel(cfg, device="meta"), {},
+                                 EngineConfig(max_seqs=2, page_size=4,
+                                              max_pages_per_seq=4,
+                                              **kw.get("ecfg", {})),
+                                 param_transform=kw.get("param_transform"),
+                                 mesh=mesh, device="cpu")
+
+            if what == "moe":
+                engine()
+                continue
+            match = ("sharded-training" if what == "mesh_axis"
+                     else "not ported")
+            with pytest.raises(NotImplementedError, match=match):
+                engine()
+    assert reached == [(4, {"tensor": 2}), (4, {"expert": 2})]

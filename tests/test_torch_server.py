@@ -184,9 +184,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 def test_port_imports_no_jax_flax_or_ray_tpu():
     """Importing every ray_tpu_torch module (the training slice's
-    ray_tpu_torch.train, ray_tpu_torch.parallel with ring attention and
-    the pipeline, and the tensor-parallel rank process's entry module among
-    them) and chip_smoke.py's imports loads no jax, flax or ray_tpu."""
+    ray_tpu_torch.train, ray_tpu_torch.parallel with ring attention, the
+    pipeline and expert parallelism, and the serving rank process's entry
+    module among them) and chip_smoke.py's imports loads no jax, flax or
+    ray_tpu."""
     code = r"""
 import importlib, pkgutil, sys
 import ray_tpu_torch
@@ -197,7 +198,7 @@ for m in ("ray_tpu_torch.train.step", "ray_tpu_torch.parallel.mesh",
           "ray_tpu_torch.llm._internal.tp_rank",
           "ray_tpu_torch.parallel.fsdp", "ray_tpu_torch.parallel.launch",
           "ray_tpu_torch.parallel.ring", "ray_tpu_torch.parallel.pipeline",
-          "ray_tpu_torch.entry"):
+          "ray_tpu_torch.parallel.ep", "ray_tpu_torch.entry"):
     assert m in sys.modules, m
 import chip_smoke
 bad = sorted(n for n in sys.modules

@@ -264,9 +264,10 @@ def test_shard_shapes_match_reference_without_processes():
 
 def test_unsplittable_batch_and_unported_axes_raise():
     """A batch that data x fsdp does not divide, and a sequence that the
-    "seq" axis does not divide, raise ValueError; an "expert" axis above 1
-    raises NotImplementedError (expert parallelism is the next slice),
-    while "seq" (with ring attention) and "stage" axes are taken."""
+    "seq" axis does not divide, raise ValueError; MoE layers over a "seq"
+    axis raise NotImplementedError, while "seq" (with ring attention),
+    "stage" and "expert" axes are taken (tests/test_torch_ep.py trains
+    over "expert")."""
     mesh = create_mesh({"data": 2, "fsdp": 2}, devices=[CPU] * 4)
     model = tllama.LlamaModel(_cfg("reference"), device="cpu",
                               param_dtype=torch.float32, mesh=mesh, rank=1)
@@ -283,13 +284,16 @@ def test_unsplittable_batch_and_unported_axes_raise():
         tstep.init_train_state(model, opt, torch.zeros((4, 7), dtype=torch.long),
                                device="cpu", mesh=seq,
                                param_rules=tllama.LLAMA_SHARDING)
-    bad = create_mesh({"expert": 2}, devices=[CPU] * 2)
+    bad = create_mesh({"seq": 2}, devices=[CPU] * 2)
     with pytest.raises(NotImplementedError, match="not ported"):
-        tllama.LlamaModel(_cfg("reference"), device="meta", mesh=bad, rank=0)
-    for shape, impl in (({"seq": 2}, "ring"), ({"stage": 2}, "reference")):
+        tllama.LlamaModel(dataclasses.replace(_cfg("ring"), num_experts=2),
+                          device="meta", mesh=bad, rank=0)
+    for shape, impl in (({"seq": 2}, "ring"), ({"stage": 2}, "reference"),
+                        ({"expert": 2}, "reference")):
         ok = create_mesh(shape, devices=[CPU] * 2)
         model = tllama.LlamaModel(_cfg(impl), device="meta", mesh=ok, rank=1)
         assert model.seq == ((2, 1) if "seq" in shape else (1, 0))
+        assert (model.ep is not None) == ("expert" in shape)
 
 
 def test_dryrun_multigpu_on_cpu_ranks(started):

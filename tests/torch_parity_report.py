@@ -464,6 +464,63 @@ def ring_pipeline_rows(rows):
                  P.TOL["atol"]))
 
 
+def ep_rows(rows):
+    """tests/test_torch_ep.py's runs: 3 steps on gloo CPU ranks at each of
+    its meshes with an "expert" axis against the port's single-device step
+    and, at {"expert": 2, "data": 2}, the reference's sharded step; the MoE
+    engine's greedy tokens at {"tensor": 2} and {"expert": 2} against the
+    port on one device and the reference's engine on the same mesh."""
+    import test_torch_ep as E
+    from ray_tpu.parallel.mesh import create_mesh as jcreate_mesh
+    from ray_tpu_torch.entry import full_params, train_job
+    from ray_tpu_torch.parallel.mesh import create_mesh
+
+    jparams, sd = E.weights()
+    per_rank = train_job(E.rank_runs(sd), device="cpu").results()
+    single = E.single_device(sd)
+    reference = E._jax_step(jparams)
+    for i, shape in enumerate(E.MESHES):
+        res = [r[i] for r in per_rank]
+        got = full_params(res)
+        refs = [("(the port on one device)", single)]
+        if shape == E.EP_DP:
+            refs.append(("`make_train_step(mesh=, param_rules="
+                         "LLAMA_SHARDING)`, 4 CPU devices", reference))
+        for ref_name, (losses, params) in refs:
+            rows.append((f"train/step.py at {shape} (MoE, 4 experts), loss "
+                         "after 3 steps, relative", ref_name,
+                         max(abs(a - b) / abs(b) for r in res
+                             for a, b in zip(r["losses"], losses)),
+                         E.LOSS_RTOL))
+            rows.append((f"train/step.py at {shape} (MoE, 4 experts), "
+                         "weights after 3 steps", ref_name,
+                         max(err(got[n], params[n]) for n in params),
+                         E.PARAM_ATOL))
+    jcfg, tcfg = E._cfgs()
+    one = E.greedy(teng.LLMEngine(tllama.LlamaModel(tcfg, device="cpu"), sd,
+                                  teng.EngineConfig(**E.ENGINE),
+                                  device="cpu"), teng)
+    for shape in E.SERVE:
+        eng = teng.LLMEngine(tllama.LlamaModel(tcfg, device="meta"), sd,
+                             teng.EngineConfig(**E.ENGINE),
+                             mesh=create_mesh(shape, devices=[E.CPU] * 2))
+        try:
+            got = E.greedy(eng, teng)
+        finally:
+            eng.close()
+        ref = E.greedy(jeng.LLMEngine(
+            jllama.LlamaModel(jcfg), jparams, jeng.EngineConfig(**E.ENGINE),
+            mesh=jcreate_mesh(shape, devices=jax.devices()[:2])), jeng)
+        n = sum(len(t) for t in one.values())
+        rows.append((f"llm/_internal/engine.py MoE greedy tokens at {shape} "
+                     f"that differ from one device's and from the "
+                     f"reference's at the same mesh ({n} tokens each)",
+                     "`LLMEngine(mesh=)`",
+                     float(sum((a != b) + (a != c) for k in one
+                               for a, b, c in zip(got[k], one[k], ref[k]))),
+                     0.0))
+
+
 def main():
     rows = []
     rng = np.random.default_rng(0)
@@ -610,6 +667,7 @@ def main():
     parallel_rows(rows)
     sharded_train_rows(rows)
     ring_pipeline_rows(rows)
+    ep_rows(rows)
 
     print("| Port module | JAX counterpart | max abs error | tolerance |")
     print("|---|---|---|---|")
