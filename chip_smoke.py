@@ -38,7 +38,13 @@ MoE Llama with 8 experts cut to 1 layer at {"expert": 2, "tensor": 2}
 against one device at the same depth. Then
 ring attention alone at {"seq": 2} and {"seq": 4} (bf16 at the 8B
 attention widths, and f32) and pipeline_apply (parallel/pipeline.py) at
-{"stage": 2} and {"stage": 4}, each held against one device. Each phase prints
+{"stage": 2} and {"stage": 4}, each held against one device. Then RLlib's
+online algorithms (ray_tpu_torch/rllib, which launch none of K1-K4): each
+learner's loss and gradients (PPO on flat and 84x84x1 pixel observations,
+IMPALA, APPO, DQN, SAC) against the same learner on the CPU; the
+reference's pixel PPO and SAC learning configs with their learning checks,
+and pixel PPO's env steps/s at 64 envs x 128 steps; IMPALA, APPO and DQN on
+the example gridworld. Each phase prints
 one JSON line; the line before the last repeats the card's name and power
 limit from nvidia-smi, and the last line is
 
@@ -65,6 +71,7 @@ import subprocess
 import sys
 import threading
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -119,6 +126,7 @@ start = {"t": time.perf_counter()}
 def emit(obj):
     if "phase" in obj:
         obj = {**obj, "t_s": time.perf_counter() - start["t"]}
+        start["phase"] = obj["phase"]
     print(json.dumps(obj), flush=True)
 
 
@@ -746,32 +754,60 @@ def profile_engine(engine, prompts, max_tokens, phase="serve_8b_profile"):
             steps += 1
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    return profile_summary(phase, prof, wall, engine_steps=steps)
+        t = time.perf_counter()
+    return profile_summary(phase, prof, wall, engine_steps=steps,
+                           stop_s=time.perf_counter() - t)
 
 
 def profile_summary(phase, prof, wall, **extra):
     """The device's busy share of ``wall`` and the kernels and host
-    operators that took the most time in a torch.profiler window."""
+    operators that took the most time in a torch.profiler window, with the
+    seconds the summary took ("summary_s"). It reads the profiler's raw
+    events: ``key_averages()`` builds their tree in Python, which took
+    94-99 s for one serving wave's events on the card's host."""
     from torch.autograd import DeviceType
 
-    ev = prof.key_averages()
-    # Kernel rows only: an operator's row, and a range a library annotates
-    # on the device (AdamW's "Optimizer.step"), repeat their kernels' time.
-    kernels = [e for e in ev if e.device_type != DeviceType.CPU
-               and not getattr(e, "is_user_annotation", False)]
-    ops = [e for e in ev if e.device_type == DeviceType.CPU]
-    dev_us = sum(e.self_device_time_total for e in kernels)
+    t = time.perf_counter()
+    kernels, ops, threads = {}, {}, {}
 
-    def top(rows, key):
-        rows = sorted(rows, key=lambda e: getattr(e, key), reverse=True)[:10]
-        return [[e.key[:60], e.count, getattr(e, key) / 1e3] for e in rows]
+    def add(rows, name, ns):
+        n, total = rows.get(name, (0, 0))
+        rows[name] = (n + 1, total + ns)
+
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CPU:
+            threads.setdefault(e.start_thread_id(), []).append(e)
+        # A range a library annotates on the device (AdamW's
+        # "Optimizer.step") repeats its kernels' time.
+        elif not e.is_user_annotation():
+            add(kernels, e.name(), e.duration_ns())
+    # A host operator's self time is its span less the spans of the events
+    # nested directly in it on its thread.
+    for evs in threads.values():
+        evs.sort(key=lambda e: (e.start_ns(), -e.end_ns()))
+        open_ = []  # [end_ns, name, self_ns] of the enclosing events
+        for e in evs:
+            start, end = e.start_ns(), e.end_ns()
+            while open_ and open_[-1][0] <= start:
+                add(ops, *open_.pop()[1:])
+            if open_:
+                open_[-1][2] -= end - start
+            open_.append([end, e.name(), end - start])
+        for _, name, ns in open_:
+            add(ops, name, ns)
+    dev_ns = sum(ns for _, ns in kernels.values())
+
+    def top(rows):
+        rows = sorted(rows.items(), key=lambda r: r[1][1], reverse=True)
+        return [[name[:60], n, ns / 1e6] for name, (n, ns) in rows[:10]]
 
     return {"phase": phase, "wall_s": wall, **extra,
-            "kernel_launches": sum(e.count for e in kernels),
-            "device_busy_s": dev_us / 1e6,
-            "device_busy_share": dev_us / 1e6 / wall,
-            "top_kernels_ms": top(kernels, "self_device_time_total"),
-            "top_host_ops_ms": top(ops, "self_cpu_time_total")}
+            "summary_s": time.perf_counter() - t,
+            "kernel_launches": sum(n for n, _ in kernels.values()),
+            "device_busy_s": dev_ns / 1e9,
+            "device_busy_share": dev_ns / 1e9 / wall,
+            "top_kernels_ms": top(kernels),
+            "top_host_ops_ms": top(ops)}
 
 
 # ---------------------------------------------------------------------------
@@ -928,7 +964,9 @@ def train_8b_phase(dev, wrappers):
         step(state, ids, ids)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    summary = profile_summary("train_8b_profile", prof, wall)
+        t = time.perf_counter()
+    summary = profile_summary("train_8b_profile", prof, wall,
+                              stop_s=time.perf_counter() - t)
 
     n_params = sum(p.numel() for p in model.parameters())
     n_dense = n_params - model.embed_tokens.weight.numel()
@@ -2332,10 +2370,12 @@ def train_8b_mesh_phase(dev, name, shape, impl="flash", layers=MESH_8B_LAYERS,
     Each rank's launches are exact: under "flash" K1 2 a layer and step
     (remat), K2 and K3 1 each; under "ring" (a "seq" axis: ring attention,
     plain PyTorch as in the reference) none, and TP 1 runs plain attention.
-    Each rank's peak memory, step seconds and experts are recorded (gloo
-    through host memory: no sharded-training speed)."""
+    Each rank's peak memory (held, and reserved against its share of the
+    card), step seconds and experts are recorded (gloo through host
+    memory: no sharded-training speed)."""
     from ray_tpu_torch.entry import train_on_ranks
     from ray_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    from ray_tpu_torch.parallel.launch import card_shares
     from ray_tpu_torch.train import adamw, init_train_state, make_train_step
 
     B, S, lr, steps, seed = 2, 2048, 3e-4, 3, 0
@@ -2378,6 +2418,8 @@ def train_8b_mesh_phase(dev, name, shape, impl="flash", layers=MESH_8B_LAYERS,
     free, total = torch.cuda.mem_get_info(dev)
     card_used = (total - free) / GB  # this process's and any other's
     main_reserved = torch.cuda.memory_reserved(dev) / GB
+    share = next(iter(card_shares([dev] * math.prod(shape.values()))
+                      .values()))
     t0 = time.perf_counter()
     res = train_on_ranks(shape, cfg, ids, steps, lr, device=dev, seed=seed,
                          grads_of=grads_of)
@@ -2414,9 +2456,12 @@ def train_8b_mesh_phase(dev, name, shape, impl="flash", layers=MESH_8B_LAYERS,
            "grad_rel_frobenius_err": grad_err,
            "grad_rtol": grad_rtol, "tp1_peak_gb": tp1_peak,
            "card_used_gb_before_ranks": card_used,
+           "card_total_gb": total / GB,
+           "rank_card_share_gb": share * total / GB,
            "main_reserved_gb_before_ranks": main_reserved,
            "tp1_step_s": tp1_s,
            "rank_peak_gb": [r.get("peak_gb") for r in res],
+           "rank_peak_reserved_gb": [r.get("peak_reserved_gb") for r in res],
            "rank_step_s_ranks_sharing_one_card_over_gloo":
                [r["step_s"] for r in res], "ranks_s": ranks_s,
            "rank_launches": [r["launches"] for r in res],
@@ -2617,6 +2662,322 @@ def parallel_checks_phase(dev, attn):
 
 
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# RLlib's online algorithms (ray_tpu_torch/rllib). No Pallas kernel lies on
+# the reference's RL path: its device work is small dense and conv layers,
+# Adam and elementwise losses. So the port's runs on cuBLAS and cuDNN and
+# launches none of K1-K4: each RL phase zeroes their counts before it runs
+# and requires them to be 0 after.
+
+# rllib_learner_check: each learner's loss and gradients on the card
+# against the same learner on the CPU from the same weights, batch,
+# permutation and noise, f32 with TF32 off. Only the order of sums differs
+# (cuBLAS/cuDNN against the CPU's), so every gradient (and the loss) is
+# held to 1e-4 relative Frobenius; limit_used = worst / RL_GRAD_RTOL.
+RL_GRAD_RTOL = 1e-4
+RL_ACTIONS = 4
+
+
+def rl_learner_inputs():
+    """Numpy inputs of every learner case, drawn from one seed: PPO
+    minibatches (flat obs 8, and 84x84x1 pixels with the reference's conv
+    widths 16/32/32 and PPO's dense 64, 64) under a fixed permutation, an
+    IMPALA/APPO rollout [32, 8], DQN transitions, SAC transitions at
+    PointGoal's widths (obs 4, action 2) with its two noise draws."""
+    rng = np.random.default_rng(40)
+    A = RL_ACTIONS
+
+    def ppo(shape, n):
+        perm = rng.permutation(n)
+        mb = {"obs": rng.random((n,) + shape, np.float32),
+              "actions": rng.integers(0, A, n).astype(np.int32),
+              "logp": (np.log(1 / A) + 0.3 * rng.standard_normal(n)
+                       ).astype(np.float32),
+              "advantages": rng.standard_normal(n).astype(np.float32),
+              "returns": rng.standard_normal(n).astype(np.float32)}
+        return {k: v[perm] for k, v in mb.items()}
+
+    T, N = 32, 8
+    rollout = {"obs": rng.standard_normal((T, N, 8)).astype(np.float32),
+               "actions": rng.integers(0, A, (T, N)).astype(np.int32),
+               "logp": (np.log(1 / A) + 0.3 * rng.standard_normal((T, N))
+                        ).astype(np.float32),
+               "rewards": rng.standard_normal((T, N)).astype(np.float32),
+               "dones": (rng.random((T, N)) < 0.1).astype(np.float32),
+               "last_values": rng.standard_normal(N).astype(np.float32)}
+
+    def transitions(n, d, act):
+        return {"obs": rng.standard_normal((n, d)).astype(np.float32),
+                "actions": act,
+                "rewards": rng.standard_normal(n).astype(np.float32),
+                "next_obs": rng.standard_normal((n, d)).astype(np.float32),
+                "dones": (rng.random(n) < 0.1).astype(np.float32)}
+
+    return {"ppo_mlp": ppo((8,), 256), "ppo_conv84": ppo((84, 84, 1), 256),
+            "rollout": rollout,
+            "dqn": transitions(128, 8, rng.integers(0, A, 128).astype(
+                np.int32)),
+            "sac": transitions(128, 4, rng.uniform(-1, 1, (128, 2)).astype(
+                np.float32)),
+            "sac_noise": rng.standard_normal((2, 128, 2)).astype(np.float32)}
+
+
+def rl_learner_grads(inputs, device):
+    """{case: (loss, {name: gradient on the host})} of every learner on
+    ``device``, each from the weights its seed draws on the host."""
+    from ray_tpu_torch.rllib import appo, dqn, impala, learner, sac
+    from ray_tpu_torch.rllib.rl_module import RLModule, to_tensor
+
+    def tensors(d):
+        return {k: to_tensor(v, device, v.dtype) for k, v in d.items()}
+
+    def grads(loss, params):
+        gs = torch.autograd.grad(loss, list(params.values()))
+        return loss.item(), {k: g.detach().cpu()
+                             for k, g in zip(params, gs)}
+
+    out = {}
+    for case, obs_dim in (("ppo_mlp", 8), ("ppo_conv84", (84, 84, 1))):
+        lr = learner.PPOLearner(RLModule(obs_dim, RL_ACTIONS, (64, 64),
+                                         device=device),
+                                learner.PPOLearnerConfig(), seed=1)
+        out[case] = grads(lr.loss(lr.params, tensors(inputs[case]))[0],
+                          lr.params)
+    batch = impala.rollout_batch(inputs["rollout"], device)
+    lr = impala.IMPALALearner(RLModule(8, RL_ACTIONS, device=device),
+                              impala.IMPALALearnerConfig(), seed=1)
+    out["impala"] = grads(lr.loss(lr.params, batch)[0], lr.params)
+    lr = appo.APPOLearner(RLModule(8, RL_ACTIONS, device=device),
+                          appo.APPOLearnerConfig(), seed=1)
+    lr.target_params = lr.module.init_params(2)  # a target apart: KL > 0
+    out["appo"] = grads(lr.loss(lr.params, batch)[0], lr.params)
+    lr = dqn.DQNLearner(dqn.DQNModule(8, RL_ACTIONS, device=device),
+                        dqn.DQNLearnerConfig(), seed=1)
+    out["dqn"] = grads(lr.loss(lr.params, lr.module.init_params(2),
+                               tensors(inputs["dqn"])), lr.params)
+    lr = sac.SACLearner(sac.SACModule(4, 2, device=device),
+                        sac.SACLearnerConfig(), seed=1)
+    mb = tensors(inputs["sac"])
+    eps_q, eps_pi = (to_tensor(e, device) for e in inputs["sac_noise"])
+    st = lr.state
+    out["sac_q"] = grads(lr.q_loss(st["q"], mb, eps_q), st["q"])
+    pl, logp = lr.pi_loss(st["policy"], mb, eps_pi)
+    out["sac_pi"] = grads(pl, st["policy"])
+    out["sac_alpha"] = grads(lr.alpha_loss(st["log_alpha"], logp.detach()),
+                             {"log_alpha": st["log_alpha"]})
+    return out
+
+
+def rl_learner_check_phase(dev, wrappers):
+    inputs = rl_learner_inputs()
+    zero_counts(wrappers)
+    card = rl_learner_grads(inputs, dev)
+    host = rl_learner_grads(inputs, torch.device("cpu"))
+    cases, worst = {}, 0.0
+    for case, (loss, grads) in card.items():
+        ref_loss, ref = host[case]
+        errs = {k: (torch.linalg.norm(g - ref[k])
+                    / torch.linalg.norm(ref[k]).clamp_min(1e-30)).item()
+                for k, g in grads.items()}
+        loss_rel = abs(loss - ref_loss) / max(abs(ref_loss), 1e-30)
+        worst = max(worst, loss_rel, *errs.values())
+        cases[case] = {"loss": loss, "cpu_loss": ref_loss,
+                       "loss_rel_err": loss_rel,
+                       "grad_max_rel_fro": max(errs.values()),
+                       "worst_grad": max(errs, key=errs.get),
+                       "grads": len(errs)}
+    launches = read_counts(wrappers)
+    ok = (worst <= RL_GRAD_RTOL and not any(launches.values())
+          and all(math.isfinite(c["loss"]) for c in cases.values()))
+    check(ok, "rllib learners card vs cpu")
+    emit({"phase": "rllib_learner_check", "cases": cases,
+          "rtol": RL_GRAD_RTOL, "limit_used": worst / RL_GRAD_RTOL,
+          "launches": launches, "ok": ok})
+    return launches
+
+
+def rl_ppo_pixels_phase(dev, wrappers):
+    """The reference's pixel learning config
+    (tests/test_rllib_sac_pixels.py:66-92: 8 envs of the 84x84 gridworld,
+    rollout 24, lr 1e-3, 4 epochs, minibatch 64, 12 iterations; late > early
+    + 0.1), then a throughput reading at 64 envs x 128 steps, minibatch 256:
+    one warm iteration and three measured."""
+    from ray_tpu_torch.rllib import PPOConfig
+    from ray_tpu_torch.rllib.examples.pixel_gridworld import (
+        PixelGridWorldBatch,
+    )
+
+    def build(num_envs, rollout, minibatch):
+        return (PPOConfig()
+                .environment(env_fn=lambda: PixelGridWorldBatch(
+                    num_envs=num_envs, size=5, wall_density=0.1,
+                    max_steps=24, res=84, seed=11))
+                .env_runners(num_env_runners=1,
+                             num_envs_per_env_runner=num_envs,
+                             rollout_fragment_length=rollout)
+                .training(lr=1e-3, num_epochs=4, minibatch_size=minibatch,
+                          entropy_coeff=0.01)
+                .debugging(seed=0)
+                .build(device=dev))
+
+    zero_counts(wrappers)
+    t0 = time.perf_counter()
+    algo = build(8, 24, 64)
+    returns, losses = [], []
+    for _ in range(12):
+        r = algo.train()
+        losses.append(r["loss"])
+        if not math.isnan(r["episode_return_mean"]):
+            returns.append(r["episode_return_mean"])
+    learn_s = time.perf_counter() - t0
+    early, late = ((float(np.mean(returns[:3])), float(np.mean(returns[-3:])))
+                   if returns else (math.nan, math.nan))
+    learned = late > early + 0.1
+    algo = build(64, 128, 256)
+    algo.train()  # warm: cuDNN's algorithm choice, the allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    calls = algo.module.inference_calls
+    rs = [algo.train() for _ in range(3)]
+    steps = sum(r["env_steps_this_iter"] for r in rs)
+    wall = sum(r["env_steps_this_iter"] / r["env_steps_per_s"] for r in rs)
+    sample = [r["sample_time_s"] for r in rs]
+    learn = [r["learn_time_s"] for r in rs]
+    launches = read_counts(wrappers)
+    ok = (learned and not any(launches.values())
+          and all(math.isfinite(x) for x in losses + [r["loss"] for r in rs]))
+    check(ok, "rllib PPO pixels")
+    emit({"phase": "rllib_ppo_pixels", "obs": [84, 84, 1],
+          "returns": returns, "early": early, "late": late,
+          "learned": learned, "learning_s": learn_s,
+          "throughput": {"envs": 64, "rollout": 128, "minibatch": 256,
+                         "iterations": 3, "env_steps": steps,
+                         "env_steps_per_s": steps / wall,
+                         "sample_s": sample, "learn_s": learn,
+                         "other_s": wall - sum(sample) - sum(learn),
+                         "forward_inference_calls":
+                             algo.module.inference_calls - calls,
+                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9},
+          "launches": launches, "ok": ok})
+    return launches
+
+
+def rl_sac_point_goal_phase(dev, wrappers):
+    """The reference's SAC learning config
+    (tests/test_rllib_sac_pixels.py:40-63: 1 runner x 8 PointGoal envs,
+    rollout 40, batch 128, 24 SGD steps an iteration, learn_start 300, lr
+    5e-4, 25 iterations; best > first + 3.0)."""
+    from ray_tpu_torch.rllib import SACConfig
+    from ray_tpu_torch.rllib.examples.point_goal import PointGoalEnv
+
+    zero_counts(wrappers)
+    t0 = time.perf_counter()
+    algo = (SACConfig()
+            .environment(lambda: PointGoalEnv())
+            .env_runners(num_env_runners=1, num_envs_per_env_runner=8,
+                         rollout_fragment_length=40)
+            .training(batch_size=128, sgd_steps_per_iter=24,
+                      learn_start=300, lr=5e-4)
+            .debugging(seed=0)
+            .build(device=dev))
+    returns, sgd, finite = [], 0, True
+    for _ in range(25):
+        r = algo.train()
+        sgd += r["sgd_steps"]
+        if r["sgd_steps"]:
+            finite &= math.isfinite(r["q_loss"] + r["pi_loss"] + r["alpha"])
+        if not math.isnan(r["episode_return_mean"]):
+            returns.append(r["episode_return_mean"])
+    first = returns[0] if returns else math.nan
+    best = max(returns) if returns else math.nan
+    launches = read_counts(wrappers)
+    ok = (best > first + 3.0 and finite and not any(launches.values())
+          and r["env_steps_total"] == 25 * 40 * 8)
+    check(ok, "rllib SAC point goal")
+    emit({"phase": "rllib_sac_point_goal", "returns": returns,
+          "first": first, "best": best, "sgd_steps": sgd,
+          "env_steps": r["env_steps_total"], "alpha": r["alpha"],
+          "seconds": time.perf_counter() - t0, "launches": launches,
+          "ok": ok})
+    return launches
+
+
+def gridworld_env():
+    """The example GridWorldEnv with the observation_space (8,) that the
+    algorithms read (the card's machine has no gymnasium CartPole)."""
+    from types import SimpleNamespace
+
+    from ray_tpu_torch.rllib.examples.gridworld import GridWorldEnv
+
+    env = GridWorldEnv()
+    env.observation_space = SimpleNamespace(shape=(env.obs_dim,))
+    return env
+
+
+RL_GRID_ITERS = 10
+
+
+def rl_gridworld_phase(dev, wrappers):
+    """IMPALA, APPO and DQN, RL_GRID_ITERS iterations each on the example
+    gridworld (2 runners x 4 envs, their default rollouts): finite losses,
+    one rollout consumed an IMPALA/APPO iteration, the step counts, APPO's
+    first KL, DQN's epsilon. Returns are reported; no learning limit."""
+    from ray_tpu_torch.rllib import APPOConfig, DQNConfig, IMPALAConfig
+
+    zero_counts(wrappers)
+    runs, ok = {}, True
+    for name, config in (("impala", IMPALAConfig()), ("appo", APPOConfig()),
+                         ("dqn", DQNConfig())):
+        t0 = time.perf_counter()
+        algo = config.environment(env_fn=gridworld_env).debugging(
+            seed=0).build(device=dev)
+        kls = []
+        if name == "appo":
+            update = algo.learner.update
+
+            def recorded(rollout, update=update):
+                out = update(rollout)
+                kls.append(out["kl"])
+                return out
+
+            algo.learner.update = recorded
+        rs = [algo.train() for _ in range(RL_GRID_ITERS)]
+        cfg = algo.config
+        per_iter = (cfg.rollout_length * cfg.num_envs_per_runner
+                    * (cfg.num_env_runners if name == "dqn" else 1))
+        steps_ok = all(r["env_steps_this_iter"] == per_iter for r in rs)
+        if name == "dqn":
+            learned = [r for r in rs if r["sgd_steps"]]
+            e0, e1 = cfg.epsilon
+            frac = min(1.0, RL_GRID_ITERS * per_iter
+                       / cfg.epsilon_anneal_steps)
+            run_ok = (steps_ok and learned
+                      and all(math.isfinite(r["loss"]) for r in learned)
+                      and abs(rs[-1]["epsilon"] - (e0 + (e1 - e0) * frac))
+                      < 1e-9)
+        else:
+            run_ok = (steps_ok
+                      and all(r["rollouts_consumed"] == 1
+                              and math.isfinite(r["loss"]) for r in rs)
+                      and (name == "impala" or kls[0] < 1e-4))
+        ok &= bool(run_ok)
+        runs[name] = {"losses": [r["loss"] for r in rs],
+                      "returns": [r["episode_return_mean"] for r in rs],
+                      "env_steps_per_s": [r["env_steps_per_s"] for r in rs],
+                      "seconds": time.perf_counter() - t0, "ok": bool(run_ok)}
+        if name == "appo":
+            runs[name]["kl"] = kls
+        if name == "dqn":
+            runs[name]["epsilon"] = [r["epsilon"] for r in rs]
+            runs[name]["sgd_steps"] = sum(r["sgd_steps"] for r in rs)
+    launches = read_counts(wrappers)
+    ok = ok and not any(launches.values())
+    check(ok, "rllib gridworld")
+    emit({"phase": "rllib_gridworld", "iterations": RL_GRID_ITERS,
+          "runs": runs, "launches": launches, "ok": ok})
+    return launches
+
+
 def main():
     import argparse
 
@@ -2772,6 +3133,12 @@ def main():
     parallel_checks_phase(dev, attn)
     gc.collect()
     torch.cuda.empty_cache()
+    rl = {"rllib_learner_check": rl_learner_check_phase(dev, wrappers),
+          "rllib_ppo_pixels": rl_ppo_pixels_phase(dev, wrappers),
+          "rllib_sac_point_goal": rl_sac_point_goal_phase(dev, wrappers),
+          "rllib_gridworld": rl_gridworld_phase(dev, wrappers)}
+    gc.collect()
+    torch.cuda.empty_cache()
     # The int8 and MoE serving paths give K1 and K4 serve_8b's shapes (the
     # same heads, batch, prompt and answer), so the main-path checks below
     # cover them.
@@ -2853,7 +3220,8 @@ def main():
                       for label, r in moe_mesh.items()},
                    **{f"{name}_per_rank": [c.get(n, 0) for c in
                                            r["rank_launches"]]
-                      for name, r in sharded.items()}}
+                      for name, r in sharded.items()},
+                   **{name: c[n] for name, c in rl.items()}}
                for n in wrappers}
     emit({"kernels": [
         {"name": "flash_fwd", "route": "cuda",
@@ -2893,4 +3261,10 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    except Exception:
+        traceback.print_exc()
+        print(f"chip_smoke: raised after phase {start.get('phase')} at "
+              f"{time.perf_counter() - start['t']:.1f} s", file=sys.stderr)
+        sys.exit(1)

@@ -7,7 +7,7 @@
   (``dryrun_multichip``'s training, PP and EP parts);
 - train_on_ranks(): the sharded train step run for a few steps in one rank
   process per mesh device, with what each rank saw (its losses, shards,
-  gradients, kernel launches, peak memory);
+  gradients, kernel launches, peak memory allocated and reserved);
 - train_job(): rank processes that run several such runs in turn, each a
   train step (``train_rank``), ring attention (``ring_rank``) or a
   pipeline (``pipeline_rank``) over its own mesh.
@@ -116,6 +116,7 @@ def train_rank(mesh: Mesh, rank: int, cfg: LlamaConfig, ids: np.ndarray,
         out["shapes"] = {n: s[0] for n, s in shards.items()}
     if dev.type == "cuda":
         out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        out["peak_reserved_gb"] = torch.cuda.max_memory_reserved(dev) / 1e9
     return out
 
 

@@ -16,6 +16,12 @@ int8 array converts like the weight. Its flax scale has the shape (1, ..., 1,
 last) of the flax layout; the torch scale is that scale laid out the way
 the weight is (broadcast over the heads for q/k/v), so ``q * s`` gives the
 same elements in both layouts.
+
+The RL networks (ray_tpu/rllib: ``Dense_i``, ``Conv_i`` and SAC's named
+``q1_d0`` ... ``q2_out``, nested under ``policy``/``q`` in SAC's trees)
+convert by ``convert_rl_params``: a flax path joined by dots names the
+torch module, a Dense kernel [in, out] becomes a Linear weight [out, in]
+and a Conv kernel HWIO an ``nn.Conv2d`` weight OIHW; biases stay.
 """
 
 from __future__ import annotations
@@ -161,4 +167,35 @@ def unconvert_params(state_dict: Dict[str, Any], head_dim: int
         for p in parents:
             node = node.setdefault(p, {})
         node[last] = leaf
+    return out
+
+
+def convert_rl_params(flax_params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """A flax RL tree (numpy arrays) -> a flat PyTorch state dict of numpy
+    arrays: ``{"Dense_0": {"kernel", "bias"}}`` -> ``Dense_0.weight``,
+    ``Dense_0.bias``; ``{"policy": {"Dense_0": ...}}`` ->
+    ``policy.Dense_0.weight``."""
+    out: Dict[str, np.ndarray] = {}
+    for path, v in _leaves(flax_params):
+        v = np.asarray(v)
+        if path[-1] == "kernel":
+            path = path[:-1] + ("weight",)
+            v = v.T if v.ndim == 2 else v.transpose(3, 2, 0, 1)
+        out[".".join(path)] = np.ascontiguousarray(v)
+    return out
+
+
+def unconvert_rl_params(state_dict: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of ``convert_rl_params`` (numpy arrays)."""
+    out: Dict[str, Any] = {}
+    for name, v in state_dict.items():
+        v = np.asarray(v)
+        *parents, last = name.split(".")
+        if last == "weight":
+            last = "kernel"
+            v = v.T if v.ndim == 2 else v.transpose(2, 3, 1, 0)
+        node = out
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = np.ascontiguousarray(v)
     return out

@@ -359,4 +359,7 @@ def test_failed_ranks_report_every_traceback(jobs):
     for r in range(2):
         assert f"rank {r} failed:" in str(err.value)
     assert "does not split" in str(err.value)
+    tail = str(err.value).rsplit("order they failed:\n", 1)[1].splitlines()
+    assert sorted(line.split(" at ")[0] for line in tail) == [
+        "rank 0", "rank 1"]
     assert all(p.poll() is not None for p in procs)

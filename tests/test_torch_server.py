@@ -185,9 +185,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 def test_port_imports_no_jax_flax_or_ray_tpu():
     """Importing every ray_tpu_torch module (the training slice's
     ray_tpu_torch.train, ray_tpu_torch.parallel with ring attention, the
-    pipeline and expert parallelism, and the serving rank process's entry
-    module among them) and chip_smoke.py's imports loads no jax, flax or
-    ray_tpu."""
+    pipeline and expert parallelism, the serving rank process's entry
+    module and ray_tpu_torch.rllib among them) and chip_smoke.py's imports
+    loads no jax, flax, optax or ray_tpu; naming a gymnasium env id in an
+    RL config loads no gymnasium either (the card's machine has none)."""
     code = r"""
 import importlib, pkgutil, sys
 import ray_tpu_torch
@@ -198,11 +199,23 @@ for m in ("ray_tpu_torch.train.step", "ray_tpu_torch.parallel.mesh",
           "ray_tpu_torch.llm._internal.tp_rank",
           "ray_tpu_torch.parallel.fsdp", "ray_tpu_torch.parallel.launch",
           "ray_tpu_torch.parallel.ring", "ray_tpu_torch.parallel.pipeline",
-          "ray_tpu_torch.parallel.ep", "ray_tpu_torch.entry"):
+          "ray_tpu_torch.parallel.ep", "ray_tpu_torch.entry",
+          "ray_tpu_torch.rllib", "ray_tpu_torch.rllib.rl_module",
+          "ray_tpu_torch.rllib.learner", "ray_tpu_torch.rllib.env_runner",
+          "ray_tpu_torch.rllib.vector", "ray_tpu_torch.rllib.ppo",
+          "ray_tpu_torch.rllib.impala", "ray_tpu_torch.rllib.appo",
+          "ray_tpu_torch.rllib.dqn", "ray_tpu_torch.rllib.sac",
+          "ray_tpu_torch.rllib.examples.gridworld",
+          "ray_tpu_torch.rllib.examples.pixel_gridworld",
+          "ray_tpu_torch.rllib.examples.point_goal"):
     assert m in sys.modules, m
 import chip_smoke
+from ray_tpu_torch.rllib import DQNConfig, IMPALAConfig, PPOConfig
+for config in (PPOConfig, IMPALAConfig, DQNConfig):
+    config().environment("CartPole-v1")
 bad = sorted(n for n in sys.modules
-             if n.split(".")[0] in ("jax", "jaxlib", "flax", "ray_tpu"))
+             if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "ray_tpu", "gymnasium"))
 assert not bad, bad
 print("clean", len([n for n in sys.modules if n.startswith("ray_tpu_torch")]))
 """

@@ -521,6 +521,192 @@ def ep_rows(rows):
                      0.0))
 
 
+def rllib_rows(rows):
+    """RLlib's online algorithms, on the inputs of
+    tests/test_torch_rllib.py: forwards, V-trace, the tanh-Gaussian
+    density, and the weights after each learner's update from the
+    reference's converted initial weights."""
+    from ray_tpu.rllib import appo as japo
+    from ray_tpu.rllib import dqn as jdqn
+    from ray_tpu.rllib import impala as jimp
+    from ray_tpu.rllib import learner as jlearn
+    from ray_tpu.rllib import rl_module as jrl
+    from ray_tpu.rllib import sac as jsac
+    from ray_tpu_torch.models.convert import convert_rl_params
+    from ray_tpu_torch.rllib import appo as tapo
+    from ray_tpu_torch.rllib import dqn as tdqn
+    from ray_tpu_torch.rllib import impala as timp
+    from ray_tpu_torch.rllib import learner as tlearn
+    from ray_tpu_torch.rllib import rl_module as trl
+    from ray_tpu_torch.rllib import sac as tsac
+
+    def conv(tree):
+        return convert_rl_params(jax.tree.map(np.asarray, tree))
+
+    def w_err(port, ref_tree):
+        ref = conv(ref_tree)
+        return max(err(port[k].detach().numpy(), v) for k, v in ref.items())
+
+    rng = np.random.default_rng(2)
+    fwd = []
+    for obs_dim in (6, (40, 40, 1), (84, 84, 1)):
+        jm = jrl.RLModule(obs_dim, 4)
+        tm = trl.RLModule(obs_dim, 4, device="cpu")
+        params = jm.init_params(jax.random.PRNGKey(3))
+        shape = (5,) + (obs_dim if isinstance(obs_dim, tuple)
+                        else (obs_dim,))
+        obs = rng.random(shape).astype(np.float32)
+        jl, jv = jm.forward_train(params, jnp.asarray(obs))
+        with torch.no_grad():
+            tl, tv = tm.forward_train(
+                {k: torch.from_numpy(v) for k, v in conv(params).items()},
+                torch.from_numpy(obs))
+        fwd.append(max(err(tl, jl), err(tv, jv)))
+    rows.append(("rllib/rl_module.py `forward_train` logits and value: MLP "
+                 "/ conv at res 40 / res 84",
+                 "`RLModule.forward_train`",
+                 max(fwd), 1e-4))
+    T, N = 7, 3
+    x = [rng.normal(size=s).astype(np.float32)
+         for s in ((T, N), (N,), (T, N))]
+    dones = (rng.random((T, N)) < 0.2).astype(np.float32)
+    rhos = np.exp(rng.normal(scale=0.5, size=(T, N))).astype(np.float32)
+    args = x + [dones, rhos]
+    ref = jimp.vtrace_targets(*map(jnp.asarray, args), gamma=0.9)
+    got = timp.vtrace_targets(*map(torch.from_numpy, args), gamma=0.9)
+    mean = rng.normal(size=(64, 2)).astype(np.float32)
+    log_std = rng.uniform(-5, 0.5, (64, 2)).astype(np.float32)
+    pre = mean + np.exp(log_std) * rng.normal(size=(64, 2)).astype(
+        np.float32)
+    lp = (jsac._tanh_gaussian_logp(*map(jnp.asarray, (pre, mean, log_std))),
+          tsac._tanh_gaussian_logp(*map(torch.from_numpy,
+                                        (pre, mean, log_std))))
+    rows.append(("rllib/impala.py `vtrace_targets` (vs, pg_adv); sac.py "
+                 "`_tanh_gaussian_logp`",
+                 "`vtrace_targets`; `_tanh_gaussian_logp`",
+                 max(err(got[0], ref[0]), err(got[1], ref[1]),
+                     err(lp[1], lp[0])), 2e-5))
+
+    def ppo_update(obs_shape, epochs, b, dtype=torch.float32):
+        """The reference's and the port's weights after one update (the
+        port's learner in ``dtype``), from the reference's init."""
+        cfg = jlearn.PPOLearnerConfig(num_epochs=epochs, minibatch_size=64,
+                                      lr=1e-3)
+        od = obs_shape if len(obs_shape) == 3 else obs_shape[0]
+        jl = jlearn.PPOLearner(jrl.RLModule(od, 4), cfg, seed=0)
+        tl = tlearn.PPOLearner(trl.RLModule(od, 4, device="cpu"), cfg,
+                               seed=0)
+        tl.params = {k: torch.from_numpy(v).to(dtype).requires_grad_()
+                     for k, v in conv(jl.params).items()}
+        tl.opt = tlearn.ClippedAdam(tl.params, cfg.lr, cfg.max_grad_norm)
+        jl.update([b])
+        tl.update([{k: v.astype(np.float64) if dtype == torch.float64
+                    and v.dtype == np.float32 else v for k, v in b.items()}])
+        return jl.params, tl.get_weights()
+
+    ppo, batches = [], {}
+    for obs_shape, epochs in (((6,), 2), ((40, 40, 1), 1), ((84, 84, 1), 1)):
+        b = batches[obs_shape] = {
+            "obs": rng.random((48,) + obs_shape).astype(np.float32),
+            "actions": rng.integers(0, 4, 48).astype(np.int32),
+            "logp": (np.log(0.25) + 0.3 * rng.normal(size=48)).astype(
+                np.float32),
+            "advantages": rng.normal(size=48).astype(np.float32),
+            "returns": rng.normal(size=48).astype(np.float32)}
+        ref, port = ppo_update(obs_shape, epochs, b)
+        ppo.append(w_err(port, ref))
+    rows.append(("rllib/learner.py `PPOLearner.update`, weights after "
+                 "whole-batch epochs: MLP 2 / conv res 40 1 / res 84 1",
+                 "`PPOLearner.update`", max(ppo), 1e-4))
+    # Two epochs at res 84: Adam's second step amplifies f32 rounding
+    # (ReLUs near 0 after the first step). The tolerance column holds the
+    # port in f32 against the port in f64: the f32 noise floor.
+    b = batches[(84, 84, 1)]
+    ref, port = ppo_update((84, 84, 1), 2, b)
+    _, port64 = ppo_update((84, 84, 1), 2, b, torch.float64)
+    rows.append(("rllib/learner.py `PPOLearner.update`, conv res 84, 2 "
+                 "epochs: the reference against the port (tolerance "
+                 "column: the port in f32 against the port in f64)",
+                 "`PPOLearner.update`", w_err(port, ref),
+                 max(err(port[k].detach(), port64[k].detach())
+                     for k in port)))
+
+    def rollout(seed):
+        r = np.random.default_rng(seed)
+        return {"obs": r.normal(size=(8, 4, 4)).astype(np.float32),
+                "actions": r.integers(0, 3, (8, 4)).astype(np.int32),
+                "logp": (np.log(1 / 3) + 0.3 * r.normal(size=(8, 4))
+                         ).astype(np.float32),
+                "rewards": r.normal(size=(8, 4)).astype(np.float32),
+                "dones": (r.random((8, 4)) < 0.15).astype(np.float32),
+                "last_values": r.normal(size=4).astype(np.float32)}
+
+    errs = []
+    for jcls, tcls, cfg in (
+            (jimp.IMPALALearner, timp.IMPALALearner,
+             jimp.IMPALALearnerConfig(lr=1e-3)),
+            (japo.APPOLearner, tapo.APPOLearner,
+             japo.APPOLearnerConfig(lr=1e-2, target_update_freq=1))):
+        jl = jcls(jrl.RLModule(4, 3), cfg, seed=0)
+        tl = tcls(trl.RLModule(4, 3, device="cpu"), cfg, seed=0)
+        tlearn.set_params_(tl.params, conv(jl.params))
+        if hasattr(tl, "target_params"):
+            tl.target_params = trl.clone_weights(tl.params)
+        for i in range(2):
+            jl.update(rollout(10 + i))
+            tl.update(rollout(10 + i))
+        errs.append(w_err(tl.get_weights(), jl.params))
+    r = np.random.default_rng(0)
+    mbs = [{"obs": r.normal(size=(32, 5)).astype(np.float32),
+            "actions": r.integers(0, 3, 32).astype(np.int32),
+            "rewards": (3 * r.normal(size=32)).astype(np.float32),
+            "next_obs": r.normal(size=(32, 5)).astype(np.float32),
+            "dones": (r.random(32) < 0.2).astype(np.float32)}
+           for _ in range(5)]
+    cfg = jdqn.DQNLearnerConfig(lr=1e-3, target_update_period=2)
+    jl = jdqn.DQNLearner(jdqn.DQNModule(5, 3), cfg, seed=0)
+    tl = tdqn.DQNLearner(tdqn.DQNModule(5, 3, device="cpu"), cfg, seed=0)
+    tlearn.set_params_(tl.params, conv(jl.params))
+    tl.target_params = trl.clone_weights(tl.params)
+    jl.update(mbs)
+    tl.update(mbs)
+    errs.append(max(w_err(tl.get_weights(), jl.params),
+                    w_err(tl.target_params, jl.target_params)))
+    cfg = jsac.SACLearnerConfig(lr=1e-3, tau=0.1)
+    jl = jsac.SACLearner(jsac.SACModule(4, 2), cfg, seed=0)
+    tl = tsac.SACLearner(tsac.SACModule(4, 2, device="cpu"), cfg, seed=0)
+    for part in ("policy", "q", "q_target"):
+        tlearn.set_params_(tl.state[part], conv(jl.state[part]))
+    mbs = [{"obs": r.normal(size=(32, 4)).astype(np.float32),
+            "actions": r.uniform(-1, 1, (32, 2)).astype(np.float32),
+            "rewards": r.normal(size=32).astype(np.float32),
+            "next_obs": r.normal(size=(32, 4)).astype(np.float32),
+            "dones": (r.random(32) < 0.2).astype(np.float32)}
+           for _ in range(3)]
+    key = jl._key
+    for mb in mbs:
+        key, sub = jax.random.split(key)
+        eps = [torch.from_numpy(np.array(jax.random.normal(k, (32, 2))))
+               for k in jax.random.split(sub)]
+        tl.step({k: torch.from_numpy(v) for k, v in mb.items()}, *eps)
+    jl.update(mbs)
+    errs.append(max(max(w_err(tl.state[p], jl.state[p])
+                        for p in ("policy", "q", "q_target")),
+                    err(tl.state["log_alpha"].detach(),
+                        jl.state["log_alpha"])))
+    rows.append(("rllib/impala.py / appo.py (2 updates, target refreshed "
+                 "after each) / dqn.py (5 double-DQN steps, 2 target "
+                 "refreshes) / sac.py (3 steps on the reference's noise): "
+                 "weights after the updates",
+                 "`IMPALALearner` / `APPOLearner` / `DQNLearner` / "
+                 "`SACLearner`",
+                 max(errs), 1e-4))
+    rows.append(("rllib/ copies: `compute_gae`, `ReplayBuffer`, "
+                 "`SyncVectorEnv`, the example envs (elements that differ; "
+                 "tests/test_torch_rllib.py)",
+                 "the same modules", 0.0, 0.0))
+
+
 def main():
     rows = []
     rng = np.random.default_rng(0)
@@ -668,6 +854,7 @@ def main():
     sharded_train_rows(rows)
     ring_pipeline_rows(rows)
     ep_rows(rows)
+    rllib_rows(rows)
 
     print("| Port module | JAX counterpart | max abs error | tolerance |")
     print("|---|---|---|---|")
