@@ -44,7 +44,13 @@ learner's loss and gradients (PPO on flat and 84x84x1 pixel observations,
 IMPALA, APPO, DQN, SAC) against the same learner on the CPU; the
 reference's pixel PPO and SAC learning configs with their learning checks,
 and pixel PPO's env steps/s at 64 envs x 128 steps; IMPALA, APPO and DQN on
-the example gridworld. Each phase prints
+the example gridworld. Then multi-agent PPO (rllib/multi_agent.py): the
+reference's two-policy learning test on the chase gridworld, each trained
+policy held against a random opponent. Then the ResNet family
+(models/resnet.py): resnet50ish at 224x224, f32 logits, gradients and
+BatchNorm statistics on the card against the CPU and its bf16 logits
+against its f32 ones, then bf16 SGD steps at batch 128 (step ms,
+images/s, MFU). Each phase prints
 one JSON line; the line before the last repeats the card's name and power
 limit from nvidia-smi, and the last line is
 
@@ -119,14 +125,17 @@ TEACHER_TOL = 0.25
 
 failures = []
 # Host clock at the start of main(): each phase line carries the seconds
-# since then ("t_s"), so the run's time can be split by phase.
+# since then ("t_s") and since the line before ("phase_s"), so the run's
+# time can be split by phase.
 start = {"t": time.perf_counter()}
 
 
 def emit(obj):
     if "phase" in obj:
-        obj = {**obj, "t_s": time.perf_counter() - start["t"]}
-        start["phase"] = obj["phase"]
+        now = time.perf_counter()
+        obj = {**obj, "t_s": now - start["t"],
+               "phase_s": now - start.get("last", start["t"])}
+        start["phase"], start["last"] = obj["phase"], now
     print(json.dumps(obj), flush=True)
 
 
@@ -2978,6 +2987,310 @@ def rl_gridworld_phase(dev, wrappers):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Multi-agent RLlib (rllib/multi_agent.py): two competing PPO policies on
+# the chase gridworld. Like the single-agent phases, no Pallas kernel lies on
+# the reference's path (two 32-wide MLPs), so the phase launches none of
+# K1-K4.
+
+CHASE_ITERS = 35
+CHASE_MARGIN = 0.3
+
+
+def chase_vs_random(module, weights, agent, n_episodes=100, seed=9999):
+    """The reference test's evaluation (tests/test_rllib_multi_agent.py:
+    54-76): the trained policy plays ``agent`` against a random opponent;
+    its mean episode reward. The policy draws from a torch generator and
+    the opponent from numpy, both seeded ``seed``."""
+    from ray_tpu_torch.rllib.examples.chase import ChaseEnv
+
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=module.device).manual_seed(seed)
+    env = ChaseEnv()
+    total = 0.0
+    for ep in range(n_episodes):
+        obs = env.reset(seed=seed + ep)
+        done = False
+        while not done:
+            a, _, _ = module[agent].forward_inference(
+                weights[agent], np.asarray(obs[agent], np.float32)[None],
+                gen)
+            acts = {aid: int(rng.integers(0, 5)) for aid in env.agents}
+            acts[agent] = int(a[0])
+            obs, rews, dones = env.step(acts)
+            total += rews[agent]
+            done = dones["__all__"]
+    return total / n_episodes
+
+
+def rl_multi_agent_chase_phase(dev, wrappers):
+    """The reference's learning test (tests/test_rllib_multi_agent.py:
+    79-115): hidden (32, 32), lr 1e-3, entropy 0.003, minibatch 256, 2
+    runners x 4 envs, rollout 64, seed 3, 35 iterations; then each trained
+    policy plays 100 episodes against a random opponent and must beat
+    random_baseline(150) by more than 0.3. env steps count agent steps (two
+    an env step), as the reference's env_steps_this_iter does."""
+    from ray_tpu_torch.rllib import MultiAgentPPOConfig, PPOLearnerConfig
+    from ray_tpu_torch.rllib.examples.chase import (
+        EVADER,
+        PURSUER,
+        ChaseEnv,
+        random_baseline,
+    )
+
+    base = random_baseline(n_episodes=150)
+    zero_counts(wrappers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    algo = (MultiAgentPPOConfig(
+                hidden=(32, 32),
+                learner=PPOLearnerConfig(lr=1e-3, entropy_coeff=0.003,
+                                         minibatch_size=256),
+                num_env_runners=2, num_envs_per_runner=4,
+                rollout_length=64, seed=3)
+            .environment(ChaseEnv)
+            .multi_agent(
+                policies={PURSUER: (ChaseEnv.obs_dim, ChaseEnv.num_actions),
+                          EVADER: (ChaseEnv.obs_dim, ChaseEnv.num_actions)},
+                policy_mapping_fn=lambda aid: aid)
+            .build(device=dev))
+    rs = [algo.train() for _ in range(CHASE_ITERS)]
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    calls = sum(m.inference_calls for _, m in algo.module.items())
+    peak_gb = torch.cuda.max_memory_allocated() / GB
+    weights = algo.get_weights()
+    t1 = time.perf_counter()
+    scores = {PURSUER: chase_vs_random(algo.module, weights, PURSUER),
+              EVADER: chase_vs_random(algo.module, weights, EVADER)}
+    eval_s = time.perf_counter() - t1
+    margins = {PURSUER: scores[PURSUER] - base["pursuer_mean"],
+               EVADER: scores[EVADER] - base["evader_mean"]}
+    launches = read_counts(wrappers)
+    steps = sum(r["env_steps_this_iter"] for r in rs)
+    # a forward a module a timestep, and at most one a cut agent
+    # (bootstrap) a sample
+    per_sample = 64 * 2
+    lo = CHASE_ITERS * 2 * per_sample
+    hi = lo + CHASE_ITERS * 2 * 4 * 2
+    losses = [v for r in rs for v in r["losses"].values()]
+    ok = (all(m > CHASE_MARGIN for m in margins.values())
+          and all(math.isfinite(v) for v in losses)
+          and set(rs[-1]["losses"]) == {PURSUER, EVADER}
+          and all(r["env_steps_this_iter"] == 2 * 2 * 4 * 64 for r in rs)
+          and lo <= calls <= hi and not any(launches.values()))
+    check(ok, "rllib multi-agent chase")
+    emit({"phase": "rllib_multi_agent_chase", "iterations": CHASE_ITERS,
+          "baseline": base, "scores": scores, "margins": margins,
+          "margin_limit": CHASE_MARGIN,
+          "reward_mean_last": rs[-1]["episode_reward_mean"],
+          "losses_last": rs[-1]["losses"],
+          "env_steps": steps, "env_steps_per_s": steps / train_s,
+          "sample_s": sum(r["sample_time_s"] for r in rs),
+          "learn_s": sum(r["learn_time_s"] for r in rs),
+          "train_s": train_s, "eval_s": eval_s,
+          "forward_inference_calls": calls,
+          "forward_inference_range": [lo, hi], "peak_gb": peak_gb,
+          "launches": launches, "ok": ok})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# The ResNet family (models/resnet.py): resnet50ish (basic blocks
+# (3, 4, 6, 3), width 64, 21.8 M parameters) at 224x224. The reference
+# computes its convs, pooling and BatchNorm with XLA ops outside any Pallas
+# kernel, so the port runs cuDNN and cuBLAS and launches none of K1-K4.
+
+RESNET_SEED = 15
+# resnet_check, card against CPU from the same weights: only the order of
+# sums differs (cuDNN's algorithms against the CPU's). In f32 with TF32 off
+# the training-mode logits are held to 1e-4 and the batch statistics to 1e-3
+# (relative Frobenius). The gradients of one step at batch 2 are
+# ill-conditioned in f32: BatchNorm over 2 x 7 x 7 positions in the last
+# stage amplifies rounding, so the CPU's own f32 gradients differ by 2.2 %
+# (global relative Frobenius) between 1 and 6 threads and lie 1.3-1.8 % from
+# its f64 ones (tests/torch_parity_report.py resnet50_grad_noise). So the
+# gradients and statistics are held to 1e-3 in float64 (card against CPU),
+# and the card's f32 gradients must lie no farther from the CPU's f64 ones
+# than RESNET_F32_FACTOR times the CPU's f32 gradients do.
+RESNET_LOGIT_RTOL = 1e-4
+RESNET_GRAD_RTOL = 1e-3
+RESNET_F32_FACTOR = 2.0
+# The reference's own bf16 logits against its f32 logits, relative
+# Frobenius, training mode, resnet50ish at resnet_check's weights and
+# inputs: measured once with JAX 0.9.0 on the CPU by
+# `tests/torch_parity_report.py resnet50_bf16`. The card's bf16 logits must
+# lie within RESNET_BF16_FACTOR times it of its own f32 logits.
+RESNET_REF_BF16_DIST = 0.015786821908352365
+RESNET_BF16_FACTOR = 2.0
+RESNET_BATCH = 128
+RESNET_WARM, RESNET_STEPS = 2, 5
+
+
+def resnet_model(device, dtype=torch.bfloat16):
+    """resnet50ish, 1000 classes, its weights drawn on the host from
+    RESNET_SEED (the same on every device); a float64 model holds them in
+    float64."""
+    from ray_tpu_torch.models.resnet import ResNet
+
+    model = ResNet(1000, (3, 4, 6, 3), 64, dtype, device=device)
+    model.init_params(torch.Generator().manual_seed(RESNET_SEED))
+    return model.double() if dtype == torch.float64 else model
+
+
+def resnet_check_inputs():
+    """resnet_check's batch: 2 seeded 224x224x3 images and labels."""
+    rng = np.random.default_rng(52)
+    return (rng.standard_normal((2, 224, 224, 3)).astype(np.float32),
+            rng.integers(0, 1000, 2))
+
+
+def resnet_flops(model, res):
+    """Forward flop an image, summed from the conv and classifier shapes
+    (2 * Cout * Cin * k^2 * Hout * Wout a conv, traced on the meta device,
+    plus 2 * in * out)."""
+    from ray_tpu_torch.models.resnet import ResNet, SameConv2d
+
+    meta = ResNet(model.num_classes, model.stage_sizes, model.width,
+                  model.dtype, device="meta")
+    total = [2 * meta.classifier.in_features * meta.classifier.out_features]
+
+    def hook(mod, inp, out):
+        total[0] += (2 * out.shape[1] * mod.in_channels
+                     * mod.kernel_size[0] * mod.kernel_size[1]
+                     * out.shape[2] * out.shape[3])
+
+    for mod in meta.modules():
+        if isinstance(mod, SameConv2d):
+            mod.register_forward_hook(hook)
+    with torch.no_grad():
+        meta(torch.empty(1, res, res, 3, device="meta"), train=False)
+    return total[0]
+
+
+def resnet_step_outputs(device, dtype, x, y):
+    """Training-mode logits, batch statistics and the gradients of softmax
+    cross-entropy, on the host (f32, or f64 for a float64 model)."""
+    model = resnet_model(device, dtype)
+    logits, stats = model(torch.from_numpy(x).to(device), train=True)
+    F.cross_entropy(logits, torch.from_numpy(y).to(device)).backward()
+    wide = torch.promote_types(dtype, torch.float32)
+    host = lambda t: t.detach().to(wide).cpu()
+    return (host(logits), {k: host(v) for k, v in stats.items()},
+            {k: host(p.grad) for k, p in model.named_parameters()})
+
+
+def resnet_check_phase(dev, wrappers):
+    """resnet50ish at batch 2 x 224x224x3 on the card against the port on
+    the CPU, from the same weights: f32 training-mode logits and batch
+    statistics (TF32 off); gradients and statistics in float64; the card's
+    f32 gradients against the float64 ones beside the CPU's; the card's bf16
+    logits against its own f32 logits."""
+    x, y = resnet_check_inputs()
+    cpu = torch.device("cpu")
+    zero_counts(wrappers)
+    t0 = time.perf_counter()
+    card = {dt: resnet_step_outputs(dev, dt, x, y)
+            for dt in (torch.float32, torch.bfloat16, torch.float64)}
+    launches = read_counts(wrappers)
+    host = {dt: resnet_step_outputs(cpu, dt, x, y)
+            for dt in (torch.float32, torch.float64)}
+    f32, f64 = torch.float32, torch.float64
+
+    def worst(a, b):
+        errs = {k: rel_fro(v, b[k]) for k, v in a.items()}
+        k = max(errs, key=errs.get)
+        return errs[k], k
+
+    flat = lambda grads: torch.cat([g.double().flatten()
+                                    for g in grads.values()])
+    logit_err = rel_fro(card[f32][0], host[f32][0])
+    stat_err, stat_at = worst(card[f32][1], host[f32][1])
+    stat64_err, stat64_at = worst(card[f64][1], host[f64][1])
+    grad64_err, grad64_at = worst(card[f64][2], host[f64][2])
+    grad32_err, grad32_at = worst(card[f32][2], host[f32][2])
+    truth = flat(host[f64][2])
+    card32_vs_64 = rel_fro(flat(card[f32][2]), truth)
+    host32_vs_64 = rel_fro(flat(host[f32][2]), truth)
+    bf16_dist = rel_fro(card[torch.bfloat16][0], card[f32][0])
+    bf16_limit = RESNET_BF16_FACTOR * RESNET_REF_BF16_DIST
+    finite = all(torch.isfinite(t).all() for out in card.values()
+                 for t in (out[0], *out[2].values()))
+    ok = (logit_err <= RESNET_LOGIT_RTOL and stat_err <= RESNET_GRAD_RTOL
+          and stat64_err <= RESNET_GRAD_RTOL
+          and grad64_err <= RESNET_GRAD_RTOL
+          and card32_vs_64 <= RESNET_F32_FACTOR * host32_vs_64
+          and bf16_dist <= bf16_limit and finite
+          and card[f32][0].shape == (2, 1000) and not any(launches.values()))
+    check(ok, "resnet card vs cpu")
+    emit({"phase": "resnet_check", "batch": [2, 224, 224, 3],
+          "logit_rel_fro": logit_err, "logit_rtol": RESNET_LOGIT_RTOL,
+          "stat_max_rel_fro": stat_err, "worst_stat": stat_at,
+          "f64_stat_max_rel_fro": stat64_err, "f64_worst_stat": stat64_at,
+          "f64_grad_max_rel_fro": grad64_err, "f64_worst_grad": grad64_at,
+          "grad_rtol": RESNET_GRAD_RTOL, "grads": len(card[f32][2]),
+          "stats": len(card[f32][1]),
+          "f32_grad_max_rel_fro_card_vs_cpu": grad32_err,
+          "f32_worst_grad": grad32_at,
+          "f32_grads_vs_f64": {"card": card32_vs_64, "cpu": host32_vs_64,
+                               "factor": RESNET_F32_FACTOR},
+          "bf16_vs_f32_rel_fro": bf16_dist, "bf16_limit": bf16_limit,
+          "ref_bf16_vs_f32_rel_fro": RESNET_REF_BF16_DIST,
+          "seconds": time.perf_counter() - t0, "launches": launches,
+          "ok": ok})
+    return launches
+
+
+def resnet_train_phase(dev, wrappers):
+    """resnet50ish, bf16, 1000 classes, on one seeded batch of 128 x
+    224x224x3 with random labels: optax.sgd at lr 0.1 (the PBT
+    trainable's, tests/test_resnet_pbt.py:53-74) as torch's plain SGD,
+    softmax cross-entropy, the batch statistics written after each step.
+    RESNET_WARM warm steps, then RESNET_STEPS measured (host clock around
+    each step, ending in loss.item()). MFU = 3 x the forward flop (from the
+    shapes) x batch / step time / 989 TFLOP/s."""
+    model = resnet_model(dev)
+    gen = torch.Generator(device=dev).manual_seed(RESNET_SEED)
+    x = torch.randn(RESNET_BATCH, 224, 224, 3, generator=gen, device=dev)
+    y = torch.randint(0, 1000, (RESNET_BATCH,), generator=gen, device=dev)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1)
+    stats0 = {k: v.clone() for k, v in model.named_buffers()}
+    flops = 3 * resnet_flops(model, 224) * RESNET_BATCH
+    zero_counts(wrappers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(RESNET_WARM + RESNET_STEPS):
+        t0 = time.perf_counter()
+        logits, stats = model(x, train=True)
+        loss = F.cross_entropy(logits, y)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        model.update_batch_stats(stats)
+        losses.append(loss.item())
+        times.append(time.perf_counter() - t0)
+    launches = read_counts(wrappers)
+    step_s = float(np.mean(times[RESNET_WARM:]))
+    changed = min(float((v - stats0[k]).abs().max())
+                  for k, v in model.named_buffers())
+    ok = (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]
+          and changed > 0 and not any(launches.values()))
+    check(ok, "resnet train")
+    emit({"phase": "resnet_train", "batch": [RESNET_BATCH, 224, 224, 3],
+          "dtype": "bfloat16", "losses": losses,
+          "step_ms": [1e3 * t for t in times[RESNET_WARM:]],
+          "warm_ms": [1e3 * t for t in times[:RESNET_WARM]],
+          "step_ms_mean": 1e3 * step_s,
+          "images_per_s": RESNET_BATCH / step_s,
+          "gflop_per_image": flops / RESNET_BATCH / 1e9,
+          "mfu": flops / step_s / PEAK_FLOPS[torch.bfloat16],
+          "peak_gb": torch.cuda.max_memory_allocated() / GB,
+          "min_stat_change": changed, "launches": launches, "ok": ok})
+    return launches
+
+
 def main():
     import argparse
 
@@ -3136,7 +3449,15 @@ def main():
     rl = {"rllib_learner_check": rl_learner_check_phase(dev, wrappers),
           "rllib_ppo_pixels": rl_ppo_pixels_phase(dev, wrappers),
           "rllib_sac_point_goal": rl_sac_point_goal_phase(dev, wrappers),
-          "rllib_gridworld": rl_gridworld_phase(dev, wrappers)}
+          "rllib_gridworld": rl_gridworld_phase(dev, wrappers),
+          "rllib_multi_agent_chase": rl_multi_agent_chase_phase(dev,
+                                                                wrappers)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    resnet = {"resnet_check": resnet_check_phase(dev, wrappers)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    resnet["resnet_train"] = resnet_train_phase(dev, wrappers)
     gc.collect()
     torch.cuda.empty_cache()
     # The int8 and MoE serving paths give K1 and K4 serve_8b's shapes (the
@@ -3221,7 +3542,7 @@ def main():
                    **{f"{name}_per_rank": [c.get(n, 0) for c in
                                            r["rank_launches"]]
                       for name, r in sharded.items()},
-                   **{name: c[n] for name, c in rl.items()}}
+                   **{name: c[n] for name, c in {**rl, **resnet}.items()}}
                for n in wrappers}
     emit({"kernels": [
         {"name": "flash_fwd", "route": "cuda",

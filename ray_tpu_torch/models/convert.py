@@ -21,7 +21,13 @@ The RL networks (ray_tpu/rllib: ``Dense_i``, ``Conv_i`` and SAC's named
 ``q1_d0`` ... ``q2_out``, nested under ``policy``/``q`` in SAC's trees)
 convert by ``convert_rl_params``: a flax path joined by dots names the
 torch module, a Dense kernel [in, out] becomes a Linear weight [out, in]
-and a Conv kernel HWIO an ``nn.Conv2d`` weight OIHW; biases stay.
+and a Conv kernel HWIO an ``nn.Conv2d`` weight OIHW; biases stay. A
+MultiRLModule's weights are a dict of per-module ``convert_rl_params``.
+
+The ResNet (ray_tpu/models/resnet.py) converts by
+``convert_resnet_variables``: its params as an RL tree's, and its
+BatchNorm ``scale``/``bias`` and ``batch_stats`` ``mean``/``var`` under
+their flax names, so both packages compute the same thing from one init.
 """
 
 from __future__ import annotations
@@ -199,3 +205,23 @@ def unconvert_rl_params(state_dict: Dict[str, Any]) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         node[last] = np.ascontiguousarray(v)
     return out
+
+
+def convert_resnet_variables(params: Dict[str, Any],
+                             batch_stats: Dict[str, Any]
+                             ) -> Dict[str, np.ndarray]:
+    """A flax ResNet's ``params`` and ``batch_stats`` (numpy arrays) -> the
+    port's state dict: ``stem.weight`` (OIHW), ``stem_bn.scale``,
+    ``stem_bn.mean``, ``stage0_block0.conv1.weight``, ...,
+    ``classifier.weight`` ([out, in])."""
+    return {**convert_rl_params(params), **convert_rl_params(batch_stats)}
+
+
+def unconvert_resnet_variables(state_dict: Dict[str, Any]
+                               ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The inverse of ``convert_resnet_variables``: (params,
+    batch_stats)."""
+    stats = {k for k in state_dict if k.endswith((".mean", ".var"))}
+    return (unconvert_rl_params({k: v for k, v in state_dict.items()
+                                 if k not in stats}),
+            unconvert_rl_params({k: state_dict[k] for k in stats}))

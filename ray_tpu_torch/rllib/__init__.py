@@ -1,7 +1,8 @@
 """ray_tpu_torch.rllib — reinforcement learning, the online algorithms.
 Port of ray_tpu/rllib (reference: rllib/ new API stack).
 
-PPO (flat and pixel observations), IMPALA, APPO, DQN and SAC: RLModules
+PPO (flat and pixel observations), IMPALA, APPO, DQN and SAC, and
+multi-agent PPO over a MultiRLModule (one policy a module id): RLModules
 applied to weights with torch.func, learners stepping torch.optim.Adam
 behind optax's global-norm clip, env runners stepping vectorized host envs
 with one batched forward a timestep. Runners and learners live in this
@@ -27,12 +28,28 @@ from ray_tpu_torch.rllib.learner import (
     PPOLearnerConfig,
     compute_gae,
 )
+from ray_tpu_torch.rllib.multi_agent import (
+    AgentToModuleConnector,
+    ModuleToAgentConnector,
+    MultiAgentEnvRunner,
+    MultiAgentEpisode,
+    MultiAgentPPO,
+    MultiAgentPPOConfig,
+    MultiRLModule,
+)
 from ray_tpu_torch.rllib.ppo import PPO, PPOConfig
 from ray_tpu_torch.rllib.rl_module import ConvActorCriticNet, RLModule
 from ray_tpu_torch.rllib.sac import SAC, SACConfig, SACLearner, SACModule
 from ray_tpu_torch.rllib.vector import SyncVectorEnv, as_batch_env
 
 __all__ = [
+    "AgentToModuleConnector",
+    "ModuleToAgentConnector",
+    "MultiAgentEnvRunner",
+    "MultiAgentEpisode",
+    "MultiAgentPPO",
+    "MultiAgentPPOConfig",
+    "MultiRLModule",
     "APPO",
     "APPOConfig",
     "APPOLearner",

@@ -12,7 +12,6 @@ live; it is resolved once (the card unless the caller names another).
 
 from __future__ import annotations
 
-import math
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -22,12 +21,9 @@ from torch import nn
 from torch.func import functional_call
 
 from ray_tpu_torch.utils.device import resolve_device
+from ray_tpu_torch.utils.flax_rules import lecun_normal, same_pads
 
 Weights = Dict[str, torch.Tensor]
-
-# flax's lecun_normal: a normal of variance 1/fan_in truncated at two
-# standard deviations, its scale raised by the truncation's loss.
-_TRUNC_STD = 0.87962566103423978
 
 
 def init_weights(net: nn.Module, gen: torch.Generator,
@@ -35,15 +31,9 @@ def init_weights(net: nn.Module, gen: torch.Generator,
     """Weights for ``net``'s parameters as flax initializes Dense and Conv:
     kernels lecun_normal over their fan-in, biases zero. Drawn on the CPU
     from ``gen``, so a seed gives the same weights on every device."""
-    out: Weights = {}
-    for name, p in net.named_parameters():
-        t = torch.zeros(p.shape)
-        if not name.endswith("bias"):
-            std = math.sqrt(1.0 / math.prod(p.shape[1:])) / _TRUNC_STD
-            nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
-                                  generator=gen)
-        out[name] = t.to(device)
-    return out
+    return {name: (torch.zeros(p.shape) if name.endswith("bias")
+                   else lecun_normal(p.shape, gen)).to(device)
+            for name, p in net.named_parameters()}
 
 
 def clone_weights(weights: Any) -> Any:
@@ -87,15 +77,6 @@ class ActorCriticNet(nn.Module):
         logits = getattr(self, f"Dense_{n}")(x)
         value = getattr(self, f"Dense_{n + 1}")(x)[..., 0]
         return logits, value
-
-
-def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
-    """flax/XLA padding="SAME" along one dim: out = ceil(size / stride),
-    the total pad split low total//2, high the rest (so a stride-2 3x3 conv
-    over 10 pads (0, 1), where a symmetric pad of 1 would be wrong)."""
-    out = -(-size // stride)
-    total = max((out - 1) * stride + kernel - size, 0)
-    return total // 2, total - total // 2
 
 
 class ConvActorCriticNet(nn.Module):

@@ -186,7 +186,8 @@ def test_port_imports_no_jax_flax_or_ray_tpu():
     """Importing every ray_tpu_torch module (the training slice's
     ray_tpu_torch.train, ray_tpu_torch.parallel with ring attention, the
     pipeline and expert parallelism, the serving rank process's entry
-    module and ray_tpu_torch.rllib among them) and chip_smoke.py's imports
+    module, ray_tpu_torch.rllib with multi-agent PPO and the ResNet among
+    them) and chip_smoke.py's imports
     loads no jax, flax, optax or ray_tpu; naming a gymnasium env id in an
     RL config loads no gymnasium either (the card's machine has none)."""
     code = r"""
@@ -207,7 +208,11 @@ for m in ("ray_tpu_torch.train.step", "ray_tpu_torch.parallel.mesh",
           "ray_tpu_torch.rllib.dqn", "ray_tpu_torch.rllib.sac",
           "ray_tpu_torch.rllib.examples.gridworld",
           "ray_tpu_torch.rllib.examples.pixel_gridworld",
-          "ray_tpu_torch.rllib.examples.point_goal"):
+          "ray_tpu_torch.rllib.examples.point_goal",
+          "ray_tpu_torch.rllib.multi_agent",
+          "ray_tpu_torch.rllib.examples.chase",
+          "ray_tpu_torch.models.resnet", "ray_tpu_torch.models.convert",
+          "ray_tpu_torch.utils.flax_rules"):
     assert m in sys.modules, m
 import chip_smoke
 from ray_tpu_torch.rllib import DQNConfig, IMPALAConfig, PPOConfig

@@ -2,10 +2,15 @@
 module, the max abs error against its JAX counterpart on the same numpy
 inputs, beside the tolerance its test holds it to.
 
-    JAX_PLATFORMS=cpu PYTHONPATH=. python tests/torch_parity_report.py
+    JAX_PLATFORMS=cpu PYTHONPATH=. python tests/torch_parity_report.py \
+        [multi_agent] [resnet]
 
 The inputs are those of tests/test_torch_*.py; the Pallas kernels run in
-interpret mode on the CPU.
+interpret mode on the CPU. Naming sections prints only their rows;
+``resnet50_bf16`` alone prints the reference's bf16-against-f32 logit
+distance that chip_smoke.py's resnet_check is held to, and
+``resnet50_grad_noise`` how far the f32 gradients of that check move with
+the order of sums.
 """
 
 import dataclasses
@@ -707,8 +712,188 @@ def rllib_rows(rows):
                  "the same modules", 0.0, 0.0))
 
 
+def multi_agent_rows(rows):
+    """rllib/multi_agent.py: the runner under the argmax policy
+    (tests/test_torch_multi_agent.py's sample), and one whole-batch update a
+    module on the GAE batches of the reference's sample."""
+    from test_torch_multi_agent import HIDDEN, sample_both
+
+    from ray_tpu.rllib import learner as jlearn
+    from ray_tpu.rllib import rl_module as jrl
+    from ray_tpu_torch.models.convert import convert_rl_params
+    from ray_tpu_torch.rllib import learner as tlearn
+    from ray_tpu_torch.rllib import multi_agent as tma
+    from ray_tpu_torch.rllib import rl_module as trl
+
+    both = sample_both()
+    differ, e = 0, 0.0
+    for js, ts, jrew, trew, _ in both.values():
+        differ += int(jrew != trew)
+        for mid in js:
+            for a, b in zip(js[mid], ts[mid]):
+                differ += sum(int((a[k] != b[k]).sum())
+                              for k in ("obs", "actions", "rewards", "dones"))
+                e = max(e, *(err(a[k], b[k])
+                             for k in ("logp", "values", "last_values")))
+    rows.append(("rllib/multi_agent.py `MultiAgentEnvRunner.sample(80)`, "
+                 "2 envs, argmax policy (chase, turn-based): obs, actions, "
+                 "rewards, dones and episode rewards that differ (PR 15)",
+                 "`MultiAgentEnvRunner`", float(differ), 0.0))
+    rows.append(("the same: logp, values, last_values (PR 15)",
+                 "`MultiAgentEnvRunner`", e, 1e-5))
+    js = both["chase"][0]
+    cfg = dict(lr=1e-3, num_epochs=2, minibatch_size=512)
+    e = 0.0
+    for i, mid in enumerate(sorted(js)):
+        batch = [tma.agent_gae(tr, 0.99, 0.95) for tr in js[mid]]
+        merged = {k: np.concatenate([b[k] for b in batch]) for k in batch[0]}
+        ref = jlearn.PPOLearner(jrl.RLModule(6, 5, HIDDEN),
+                                jlearn.PPOLearnerConfig(**cfg), seed=3 + i)
+        port = tlearn.PPOLearner(trl.RLModule(6, 5, HIDDEN, device="cpu"),
+                                 tlearn.PPOLearnerConfig(**cfg), seed=3 + i)
+        port.set_weights(convert_rl_params(jax.tree.map(np.asarray,
+                                                        ref.params)))
+        ref.update([merged])
+        port.update([merged])
+        e = max(e, tree_err(port.get_weights(), convert_rl_params(
+            jax.tree.map(np.asarray, ref.params))))
+    rows.append(("rllib/multi_agent.py one update a module (2 whole-batch "
+                 "epochs) on the per-agent GAE batches: weights (PR 15)",
+                 "`MultiAgentPPO.training_step`", e, 1e-4))
+
+
+def resnet_rows(rows):
+    """models/resnet.py against ray_tpu/models/resnet.py on
+    tests/test_torch_resnet.py's seeded variables."""
+    from test_torch_resnet import _pair, _rel
+
+    from ray_tpu.models.resnet import ResNet as JResNet
+    from ray_tpu_torch.models import resnet as tres
+    from ray_tpu_torch.models.convert import convert_resnet_variables
+
+    for res in (32, 16):
+        rng = np.random.default_rng(res)
+        x = rng.normal(size=(4, res, res, 3)).astype(np.float32)
+        y = np.array([0, 3, 7, 9])
+        jm = JResNet.tiny(10)
+        v, tm = _pair(jm, tres.ResNet.tiny(10, device="cpu"), x)
+
+        def loss_fn(params, v=v, x=x, y=y, jm=jm):
+            logits, upd = jm.apply({"params": params,
+                                    "batch_stats": v["batch_stats"]},
+                                   jnp.asarray(x), train=True,
+                                   mutable=["batch_stats"])
+            return optax.softmax_cross_entropy(
+                logits, jax.nn.one_hot(y, 10)).mean(), (logits, upd)
+
+        (_, (jl, upd)), jg = jax.jit(jax.value_and_grad(
+            loss_fn, has_aux=True))(v["params"])
+        tl, ts = tm(torch.from_numpy(x), train=True)
+        torch.nn.functional.cross_entropy(tl, torch.from_numpy(y)).backward()
+        stats = convert_resnet_variables({}, jax.tree.map(
+            np.asarray, upd["batch_stats"]))
+        grads = convert_resnet_variables(jax.tree.map(np.asarray, jg), {})
+        tm.update_batch_stats(ts)
+        with torch.no_grad():
+            te = tm(torch.from_numpy(x), train=False)
+        je = jm.apply({"params": v["params"],
+                       "batch_stats": upd["batch_stats"]}, jnp.asarray(x),
+                      train=False)
+        name = f"models/resnet.py `ResNet.tiny()` f32 at {res}x{res}"
+        rows.append((f"{name}: training / eval logits (PR 15)",
+                     "`ResNet.apply`", max(err(tl.detach(), jl),
+                                           err(te, je)), 1e-4))
+        rows.append((f"{name}: batch-stat updates (PR 15)",
+                     "`ResNet.apply(mutable=[\"batch_stats\"])`",
+                     max(err(ts[k], w) for k, w in stats.items()), 1e-5))
+        rows.append((f"{name}: gradients (PR 15)", "`jax.grad`",
+                     max(err(p.grad, grads[k])
+                         for k, p in tm.named_parameters()), 5e-4))
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(4, 32, 32, 3)).astype(np.float32)
+    jm = JResNet(num_classes=10, stage_sizes=(1, 1), width=8)
+    v, tm = _pair(jm, tres.ResNet(10, (1, 1), 8, device="cpu"), x, seed=2)
+    with torch.no_grad():
+        te = tm(torch.from_numpy(x), train=False)
+    rows.append(("models/resnet.py bf16 tiny (1, 1) width 8, eval logits, "
+                 "relative Frobenius (PR 15)", "`ResNet.apply`",
+                 _rel(te.numpy(), jm.apply(v, jnp.asarray(x), train=False)),
+                 2e-2))
+
+
+def resnet50_bf16_distance():
+    """The reference's bf16 logits against its f32 logits (relative
+    Frobenius, training mode) for resnet50ish at chip_smoke.py's
+    resnet_check weights (RESNET_SEED, drawn by the port) and inputs: the
+    yardstick of chip_smoke.py's RESNET_REF_BF16_DIST."""
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+
+    from ray_tpu.models.resnet import ResNet as JResNet
+    from ray_tpu_torch.models.convert import unconvert_resnet_variables
+
+    torch.set_num_threads(4)
+    x, _ = chip_smoke.resnet_check_inputs()
+    model = chip_smoke.resnet_model(torch.device("cpu"), torch.float32)
+    params, stats = unconvert_resnet_variables(
+        {k: v.numpy() for k, v in model.state_dict().items()})
+    v = {"params": params, "batch_stats": stats}
+    logits = {}
+    for dt in (jnp.float32, jnp.bfloat16):
+        jm = JResNet(num_classes=1000, stage_sizes=(3, 4, 6, 3), dtype=dt)
+        fn = jax.jit(lambda v, x, jm=jm: jm.apply(
+            v, x, train=True, mutable=["batch_stats"])[0])
+        logits[dt] = np.asarray(fn(v, jnp.asarray(x)), np.float64)
+    f32_, bf16_ = logits[jnp.float32], logits[jnp.bfloat16]
+    dist = np.linalg.norm(bf16_ - f32_) / np.linalg.norm(f32_)
+    print(f"resnet50ish reference bf16 vs f32 training logits, relative "
+          f"Frobenius, jax {jax.__version__}: {float(dist)!r}")
+
+
+def resnet50_grad_noise():
+    """How far one step's f32 gradients of resnet50ish (chip_smoke.py's
+    resnet_check weights and batch of 2) move with the order of sums alone:
+    the port on the CPU at 1 and at 6 threads, against each other and
+    against the port in float64 (global relative Frobenius)."""
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+
+    x, y = chip_smoke.resnet_check_inputs()
+    cpu = torch.device("cpu")
+    grads = {}
+    for name, threads, dt in (("f64", 6, torch.float64),
+                              ("f32_6_threads", 6, torch.float32),
+                              ("f32_1_thread", 1, torch.float32)):
+        torch.set_num_threads(threads)
+        g = chip_smoke.resnet_step_outputs(cpu, dt, x, y)[2]
+        grads[name] = torch.cat([v.double().flatten() for v in g.values()])
+    dist = lambda a, b: float(torch.linalg.norm(grads[a] - grads[b])
+                              / torch.linalg.norm(grads[b]))
+    print({"f32_1_vs_6_threads": dist("f32_1_thread", "f32_6_threads"),
+           "f32_6_threads_vs_f64": dist("f32_6_threads", "f64"),
+           "f32_1_thread_vs_f64": dist("f32_1_thread", "f64")})
+
+
 def main():
+    import sys
+
+    sections = {"multi_agent": multi_agent_rows, "resnet": resnet_rows}
+    names = sys.argv[1:]
+    if names == ["resnet50_bf16"]:
+        return resnet50_bf16_distance()
+    if names == ["resnet50_grad_noise"]:
+        return resnet50_grad_noise()
     rows = []
+    if names:
+        for n in names:
+            sections[n](rows)
+        return print_rows(rows)
     rng = np.random.default_rng(0)
     q = rng.standard_normal((2, 128, 4, 32), dtype=np.float32)
     k = rng.standard_normal((2, 128, 2, 32), dtype=np.float32)
@@ -855,7 +1040,12 @@ def main():
     ring_pipeline_rows(rows)
     ep_rows(rows)
     rllib_rows(rows)
+    for fn in sections.values():
+        fn(rows)
+    print_rows(rows)
 
+
+def print_rows(rows):
     print("| Port module | JAX counterpart | max abs error | tolerance |")
     print("|---|---|---|---|")
     for name, ref_name, e, tol in rows:
