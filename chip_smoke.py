@@ -50,7 +50,14 @@ policy held against a random opponent. Then the ResNet family
 (models/resnet.py): resnet50ish at 224x224, f32 logits, gradients and
 BatchNorm statistics on the card against the CPU and its bf16 logits
 against its f32 ones, then bf16 SGD steps at batch 128 (step ms,
-images/s, MFU). Each phase prints
+images/s, MFU). Then offline RLlib (rllib/offline.py, bc.py, cql.py): BC
+and CQL on logged expert episodes of the example gridworld, one pass each
+against the CPU and the reference's learning checks; and train-state
+checkpoints (train/_checkpoint.py): the Llama-3-8B widths cut to 1 layer
+saved after 2 steps, restored into a model from another seed and stepped
+beside the saved one (exactly equal, save and load GB/s), and the same on
+each of four gloo ranks of the tiny model at {"fsdp": 2, "tensor": 2}.
+Each phase prints
 one JSON line; the line before the last repeats the card's name and power
 limit from nvidia-smi, and the last line is
 
@@ -3291,6 +3298,276 @@ def resnet_train_phase(dev, wrappers):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Offline RLlib (rllib/offline.py, bc.py, cql.py): BC and CQL trained from
+# logged gridworld episodes. The reference's nets are flax Dense layers
+# outside any Pallas kernel, so the phase launches none of K1-K4.
+
+# One train() pass on the card against the same pass on the CPU, from the
+# same seeded weights (TF32 off): the weights within the CPU tests' limit
+# against the reference (tests/test_torch_offline.py).
+OFFLINE_PARITY_ATOL = 1e-4
+# The reference test's learning checks (tests/test_rllib_offline.py:61-93):
+# BC 12 passes, then a mean return over 15 episodes above 0.5 and above its
+# untrained return + 0.3; CQL 40 passes with its target copied every 20
+# updates, then above 0.3.
+BC_ITERS, CQL_ITERS, CQL_TARGET_EVERY = 12, 40, 20
+BC_RETURN, BC_MARGIN, CQL_RETURN = 0.5, 0.3, 0.3
+OFFLINE_EPISODES = 15
+
+
+class TransitionBlocks:
+    """A dataset of transition blocks (what OfflineData reads from a Data
+    dataset): ``iter_blocks()`` yields them."""
+
+    def __init__(self, *blocks):
+        self.blocks = blocks
+
+    def iter_blocks(self):
+        return iter(self.blocks)
+
+
+def offline_env():
+    from ray_tpu_torch.rllib.examples.gridworld import GridWorldEnv
+
+    return GridWorldEnv(size=6, seed=3)
+
+
+def offline_dataset():
+    """The reference test's data: 150 expert episodes at seed 0, each cut
+    at 48 steps, in one block."""
+    from ray_tpu_torch.rllib.examples.gridworld import expert_policy
+    from ray_tpu_torch.rllib.offline import record_episodes
+
+    env = offline_env()
+    return TransitionBlocks(record_episodes(
+        lambda: env, n_episodes=150, policy=expert_policy(env), seed=0,
+        max_steps=48))
+
+
+def offline_configs(bc_mod, cql_mod, dataset, seed=0):
+    """The reference test's BC (lr 3e-3, batch 256) and CQL (lr 1e-3,
+    batch 64, alpha 1) configs over ``dataset``, from either package's bc
+    and cql modules (their builders are the same)."""
+    bc = (bc_mod.BCConfig().environment(obs_dim=8, num_actions=4)
+          .offline_data(dataset=dataset)
+          .training(lr=3e-3, train_batch_size=256))
+    cql = (cql_mod.CQLConfig().environment(obs_dim=8, num_actions=4)
+           .offline_data(dataset=dataset)
+           .training(lr=1e-3, cql_alpha=1.0, train_batch_size=64))
+    bc.seed = cql.seed = seed
+    return bc, cql
+
+
+def offline_learning(bc, cql, sync=lambda: None):
+    """The reference test's learning runs on built BC and CQL algorithms:
+    their returns, train() results, learn seconds (ended by ``sync``) and
+    whether they clear its limits."""
+    out = {"bc_untrained_return": bc.evaluate(
+        offline_env, n_episodes=OFFLINE_EPISODES)["episode_return_mean"]}
+    cql.config.learner.target_update_every = CQL_TARGET_EVERY
+    for name, algo, iters in (("bc", bc, BC_ITERS), ("cql", cql, CQL_ITERS)):
+        t = time.perf_counter()
+        results = [algo.train() for _ in range(iters)]
+        sync()
+        out[f"{name}_learn_s"] = time.perf_counter() - t
+        out[f"{name}_updates"] = sum(r["num_batches"] for r in results)
+        out[f"{name}_losses"] = [r["loss"] for r in results]
+        out[f"{name}_return"] = algo.evaluate(
+            offline_env, n_episodes=OFFLINE_EPISODES)["episode_return_mean"]
+    out["passed"] = bool(
+        out["bc_return"] > BC_RETURN
+        and out["bc_return"] > out["bc_untrained_return"] + BC_MARGIN
+        and out["cql_return"] > CQL_RETURN
+        and all(math.isfinite(x) for x in out["bc_losses"]
+                + out["cql_losses"]))
+    return out
+
+
+def rl_offline_phase(dev, wrappers):
+    """rllib_offline_gridworld: BC and CQL (ray_tpu_torch/rllib) on the
+    reference test's data, held in memory. One pass of each (CQL copying
+    its target every 2 updates) on the card against the CPU from the same
+    seeded weights, then the reference test's learning checks on the card
+    with updates/s and the learn seconds."""
+    from ray_tpu_torch.rllib import bc as tbc
+    from ray_tpu_torch.rllib import cql as tcql
+
+    t0 = time.perf_counter()
+    data = offline_dataset()
+    record_s = time.perf_counter() - t0
+    parity = {}
+    for name, config in (("bc", tbc.BCConfig), ("cql", tcql.CQLConfig)):
+        pair = []
+        for d in (dev, torch.device("cpu")):
+            algo = (config().environment(obs_dim=8, num_actions=4)
+                    .offline_data(dataset=data).build(device=d))
+            if name == "cql":
+                algo.config.learner.target_update_every = 2
+            pair.append((algo, algo.train()))
+        (card, r_card), (cpu, r_cpu) = pair
+        nets = [("params", card.params, cpu.params)]
+        if name == "cql":
+            nets.append(("target", card.target_params, cpu.target_params))
+        parity[name] = {
+            "num_batches": r_card["num_batches"],
+            "loss": r_card["loss"], "cpu_loss": r_cpu["loss"],
+            **{f"{what}_max_abs_err": max(
+                (a[k].detach().cpu() - b[k].detach()).abs().max().item()
+                for k in a) for what, a, b in nets}}
+    parity_ok = all(v <= OFFLINE_PARITY_ATOL for r in parity.values()
+                    for k, v in r.items() if k.endswith("max_abs_err"))
+    zero_counts(wrappers)
+    bc, cql = offline_configs(tbc, tcql, data)
+    learn = offline_learning(bc.build(device=dev), cql.build(device=dev),
+                             sync=lambda: torch.cuda.synchronize(dev))
+    launches = read_counts(wrappers)
+    ok = parity_ok and learn["passed"] and not any(launches.values())
+    check(ok, "rllib offline gridworld")
+    emit({"phase": "rllib_offline_gridworld",
+          "transitions": len(data.blocks[0]["action"]), "record_s": record_s,
+          "parity": parity, "parity_atol": OFFLINE_PARITY_ATOL,
+          "bc_updates_per_s": learn["bc_updates"] / learn["bc_learn_s"],
+          "cql_updates_per_s": learn["cql_updates"] / learn["cql_learn_s"],
+          **learn, "limits": {"bc_return": BC_RETURN, "bc_margin": BC_MARGIN,
+                              "cql_return": CQL_RETURN},
+          "launches": launches, "ok": ok})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Train-state checkpoints (train/_checkpoint.py): a state saved, restored
+# into a state drawn from another seed, and both stepped once more
+# (entry.py's train_rank(checkpoint=)). Nothing in a step is order-random:
+# K2 and K3 accumulate in a fixed order with no atomics, so the restored
+# state's loss, parameters and AdamW moments must equal the continued
+# state's exactly.
+
+# Llama-3-8B widths cut to 1 of 32 layers (the smallest depth at full
+# width): 1.27 B parameters, 15.2 GB on disk with AdamW's two moments.
+CKPT_LAYERS = 1
+CKPT_STEPS = 2
+
+
+def checkpoint_place(state_bytes):
+    """A fresh directory under tempfile.gettempdir(), or under the
+    gitignored ray_tpu_torch/_build/ where the first has less than twice
+    ``state_bytes`` free, and the free bytes of each place looked at;
+    raises if neither has room."""
+    import shutil
+    import tempfile
+
+    free = {}
+    for root in (tempfile.gettempdir(),
+                 os.path.join(REPO, "ray_tpu_torch", "_build")):
+        os.makedirs(root, exist_ok=True)
+        free[root] = shutil.disk_usage(root).free
+        if free[root] >= 2 * state_bytes:
+            return tempfile.mkdtemp(prefix="ray_tpu_torch_ckpt_",
+                                    dir=root), free
+    raise RuntimeError(f"no room for a checkpoint of {state_bytes / GB:.2f} "
+                       f"GB (twice it free needed): free bytes {free}")
+
+
+def checkpoint_row(ck):
+    return {**ck, "save_gb_per_s": ck["bytes"] / GB / ck["save_s"],
+            "load_gb_per_s": ck["bytes"] / GB / ck["load_s"]}
+
+
+def train_8b_checkpoint_phase(dev, wrappers):
+    """train_8b's model (bf16 compute over f32 parameters, remat, flash
+    attention, AdamW 3e-4, its seeded 2 x 2048 batch) cut to CKPT_LAYERS:
+    CKPT_STEPS steps, save_pytree, load_pytree into a model drawn from
+    another seed, one more step on each; exact equality, the save's and
+    the load's seconds and GB/s (the load reads a file just written:
+    warm), K1 2, K2 1 and K3 1 a step."""
+    import shutil
+
+    from ray_tpu_torch.entry import train_rank
+    from ray_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    from ray_tpu_torch.parallel.mesh import create_mesh
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              num_layers=CKPT_LAYERS)
+    assert (cfg.dtype == torch.bfloat16 and cfg.remat
+            and cfg.attention_impl == "flash")
+    n_params = sum(p.numel() for p in
+                   LlamaModel(cfg, device="meta").parameters())
+    state_bytes = 12 * n_params  # f32 parameter and two AdamW moments
+    path, free = checkpoint_place(state_bytes)
+    emit({"phase": "train_8b_checkpoint_place", "dir": path,
+          "free_gb": {k: v / GB for k, v in free.items()},
+          "state_gb": state_bytes / GB})
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 2048))
+    zero_counts(wrappers)
+    try:
+        res = train_rank(create_mesh({"data": 1}, devices=[dev]), 0, cfg,
+                         ids, CKPT_STEPS, 3e-4, seed=0,
+                         checkpoint=os.path.join(path, "state"))
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    launches = read_counts(wrappers)
+    ck = checkpoint_row(res["checkpoint"])
+    L = CKPT_LAYERS
+    per_step = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    want = {k: (CKPT_STEPS + 2) * v for k, v in per_step.items()}
+    ok = (ck["equal"] and ck["restored_at_step"] == CKPT_STEPS
+          and all(math.isfinite(x) for x in res["losses"] + [ck["loss"]])
+          and ck["launches"] == {k: 2 * v for k, v in per_step.items()}
+          and launches == dict(want, paged_decode=0)
+          and ck["bytes"] >= state_bytes)
+    check(ok, "8B train-state checkpoint")
+    emit({"phase": "train_8b_checkpoint", "layers": L, "of_layers": 32,
+          "params": n_params, "state_gb": state_bytes / GB,
+          "losses": res["losses"], "step_s": res["step_s"], **ck,
+          "peak_gb": res.get("peak_gb"), "launches": launches,
+          "launches_per_step_expected": per_step, "ok": ok})
+    return launches
+
+
+def train_tiny_mesh_checkpoint_phase(dev):
+    """The tiny f32 flash model at {"fsdp": 2, "tensor": 2}, four gloo
+    ranks sharing this card: train_tiny_mesh's batch and seed, CKPT_STEPS
+    AdamW steps at lr 1e-3, then each rank's round trip through its own
+    part (train_rank(checkpoint=)); exact equality on every rank, K1-K3
+    as train_tiny_mesh's (one a layer a step each, no remat)."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.entry import train_on_ranks
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    cfg = dataclasses.replace(LlamaConfig.tiny(), attention_impl="flash")
+    ids = np.random.default_rng(2).integers(0, 512, (2, 64))
+    shape = {"fsdp": 2, "tensor": 2}
+    path = tempfile.mkdtemp(prefix="ray_tpu_torch_ckpt_")
+    t0 = time.perf_counter()
+    try:
+        res = train_on_ranks(shape, cfg, ids, CKPT_STEPS, 1e-3, device=dev,
+                             seed=3, checkpoint=os.path.join(path, "state"))
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    ranks_s = time.perf_counter() - t0
+    L = cfg.num_layers
+    per_step = {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    cks = [checkpoint_row(r["checkpoint"]) for r in res]
+    ok = (all(c["equal"] and c["restored_at_step"] == CKPT_STEPS
+              and c["launches"] == {k: 2 * v for k, v in per_step.items()}
+              for c in cks)
+          and len({c["loss"] for c in cks}) == 1
+          and all(math.isfinite(c["loss"]) for c in cks)
+          and mesh_launches_ok(res, {k: CKPT_STEPS * v
+                                     for k, v in per_step.items()}))
+    check(ok, "tiny sharded train-state checkpoint")
+    emit({"phase": "train_tiny_mesh_checkpoint", "mesh": shape,
+          "backend": "gloo", "ranks_s": ranks_s,
+          "losses": [r["losses"] for r in res], "ranks": cks,
+          "rank_launches": [r["launches"] for r in res],
+          "launches_per_step_expected": per_step, "ok": ok})
+    return [{k: r["launches"][k] + c["launches"][k] for k in r["launches"]}
+            for r, c in zip(res, cks)]
+
+
 def main():
     import argparse
 
@@ -3460,6 +3737,13 @@ def main():
     resnet["resnet_train"] = resnet_train_phase(dev, wrappers)
     gc.collect()
     torch.cuda.empty_cache()
+    offline = {"rllib_offline_gridworld": rl_offline_phase(dev, wrappers)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    offline["train_8b_checkpoint"] = train_8b_checkpoint_phase(dev, wrappers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_ckpt = train_tiny_mesh_checkpoint_phase(dev)
     # The int8 and MoE serving paths give K1 and K4 serve_8b's shapes (the
     # same heads, batch, prompt and answer), so the main-path checks below
     # cover them.
@@ -3542,7 +3826,10 @@ def main():
                    **{f"{name}_per_rank": [c.get(n, 0) for c in
                                            r["rank_launches"]]
                       for name, r in sharded.items()},
-                   **{name: c[n] for name, c in {**rl, **resnet}.items()}}
+                   "train_tiny_mesh_checkpoint_per_rank":
+                       [c.get(n, 0) for c in mesh_ckpt],
+                   **{name: c[n] for name, c in
+                      {**rl, **resnet, **offline}.items()}}
                for n in wrappers}
     emit({"kernels": [
         {"name": "flash_fwd", "route": "cuda",

@@ -10,13 +10,16 @@
   gradients, kernel launches, peak memory allocated and reserved);
 - train_job(): rank processes that run several such runs in turn, each a
   train step (``train_rank``), ring attention (``ring_rank``) or a
-  pipeline (``pipeline_rank``) over its own mesh.
+  pipeline (``pipeline_rank``) over its own mesh;
+- checkpoint_round_trip(): a train state saved, restored into a fresh one
+  and stepped beside it (``train_rank(checkpoint=)``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 from typing import Any, Dict, List, Mapping, Optional, Sequence
 
@@ -61,30 +64,106 @@ def _kernels():
             "flash_bwd_dkv": attn.flash_bwd_dkv_kernel}
 
 
-def train_rank(mesh: Mesh, rank: int, cfg: LlamaConfig, ids: np.ndarray,
-               steps: int, lr: float, seed: Optional[int] = None,
-               state_dict: Optional[Mapping[str, np.ndarray]] = None,
-               param_rules=LLAMA_SHARDING, want_params: bool = False,
-               grads_of: Sequence[str] = ()) -> Dict[str, Any]:
-    """One rank of ``train_on_ranks`` (run in a rank process of
-    parallel/launch.py): the rank's shard of ``cfg`` with f32 parameters,
-    AdamW, ``steps`` sharded steps on the global batch ``ids`` (its own
-    labels). Weights from ``seed`` (every mesh draws the unsharded model's
-    values) or from a full ``state_dict``."""
+def _rank_state(mesh: Mesh, rank: int, cfg: LlamaConfig,
+                batch: torch.Tensor, lr: float, seed: Optional[int],
+                state_dict: Optional[Mapping[str, np.ndarray]],
+                param_rules):
+    """(state, step): the rank's shard of ``cfg`` with f32 parameters and
+    AdamW at ``lr``, weights from ``seed`` or a full ``state_dict``."""
     from ray_tpu_torch.train import adamw, init_train_state, make_train_step
 
     dev = mesh.devices[rank]
     model = LlamaModel(cfg, device=dev, param_dtype=torch.float32, mesh=mesh,
                        rank=rank)
     opt = adamw(model.parameters(), lr)
-    batch = torch.from_numpy(np.asarray(ids)).long().to(dev)
     gen = (None if seed is None
            else torch.Generator(device=dev).manual_seed(seed))
     state = init_train_state(model, opt, batch, generator=gen, device=dev,
                              mesh=mesh, param_rules=param_rules)
     if state_dict is not None:
         load_params(model, shard_params(model, state_dict))
-    step = make_train_step(model, opt, mesh=mesh, param_rules=param_rules)
+    return state, make_train_step(model, opt, mesh=mesh,
+                                  param_rules=param_rules)
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _same_state(a, b) -> bool:
+    """Every parameter and optimizer moment of two train states equal, bit
+    for bit, and the same step."""
+    pa, pb = dict(a.model.named_parameters()), dict(b.model.named_parameters())
+    if a.step != b.step or pa.keys() != pb.keys():
+        return False
+    for n in pa:
+        sa, sb = a.optimizer.state[pa[n]], b.optimizer.state[pb[n]]
+        if not torch.equal(pa[n], pb[n]) or sa.keys() != sb.keys():
+            return False
+        if not all(torch.equal(torch.as_tensor(sa[k]), torch.as_tensor(sb[k]))
+                   for k in sa):
+            return False
+    return True
+
+
+def checkpoint_round_trip(state, step, make_state, batch: torch.Tensor,
+                          path: str) -> Dict[str, Any]:
+    """Save ``state`` into ``path`` (``save_pytree``), restore it into a
+    fresh state from ``make_state()`` (``load_pytree(target=)``), then
+    take one more ``step`` on each (the fresh one through its own step).
+    Returns both losses, whether every parameter and moment is then equal,
+    the seconds of the save and of the load, the bytes of this rank's file
+    and the K1-K3 launches of the two steps."""
+    from ray_tpu_torch.train import load_pytree, save_pytree
+    from ray_tpu_torch.train._checkpoint import state_file
+
+    dev = batch.device
+    _sync(dev)
+    t = time.perf_counter()
+    ckpt = save_pytree(state, path)
+    _sync(dev)
+    save_s = time.perf_counter() - t
+    nbytes = os.path.getsize(os.path.join(path, state_file(state)))
+    restored, restored_step = make_state()
+    _sync(dev)
+    t = time.perf_counter()
+    load_pytree(ckpt, target=restored)
+    _sync(dev)
+    load_s = time.perf_counter() - t
+    kernels = _kernels()
+    before = {n: k.launches for n, k in kernels.items()}
+    restored_at = restored.step
+    _, loss = step(state, batch, batch)
+    _, restored_loss = restored_step(restored, batch, batch)
+    return {"loss": loss.item(), "restored_loss": restored_loss.item(),
+            "restored_at_step": restored_at,
+            "equal": bool(loss.item() == restored_loss.item()
+                          and _same_state(state, restored)),
+            "save_s": save_s, "load_s": load_s, "bytes": nbytes,
+            "launches": {n: k.launches - before[n]
+                         for n, k in kernels.items()}}
+
+
+def train_rank(mesh: Mesh, rank: int, cfg: LlamaConfig, ids: np.ndarray,
+               steps: int, lr: float, seed: Optional[int] = None,
+               state_dict: Optional[Mapping[str, np.ndarray]] = None,
+               param_rules=LLAMA_SHARDING, want_params: bool = False,
+               grads_of: Sequence[str] = (),
+               checkpoint: Optional[str] = None) -> Dict[str, Any]:
+    """One rank of ``train_on_ranks`` (run in a rank process of
+    parallel/launch.py, or in this one for a mesh of one device): the
+    rank's shard of ``cfg`` with f32 parameters, AdamW, ``steps`` sharded
+    steps on the global batch ``ids`` (its own labels). Weights from
+    ``seed`` (every mesh draws the unsharded model's values) or from a full
+    ``state_dict``. With ``checkpoint`` (a directory, the same on every
+    rank): then ``checkpoint_round_trip`` into a state drawn from another
+    seed, its result under "checkpoint"."""
+    dev = mesh.devices[rank]
+    batch = torch.from_numpy(np.asarray(ids)).long().to(dev)
+    state, step = _rank_state(mesh, rank, cfg, batch, lr, seed, state_dict,
+                              param_rules)
+    model = state.model
     kernels = _kernels()
     for k in kernels.values():
         k.launches = 0
@@ -101,14 +180,20 @@ def train_rank(mesh: Mesh, rank: int, cfg: LlamaConfig, ids: np.ndarray,
         if i == 0:
             grads = {n: params[n].grad.float().cpu().numpy()
                      for n in grads_of}
+    launches = {n: k.launches for n, k in kernels.items()}
     shards = param_shards(model)
     out = {"rank": rank, "device": str(dev), "losses": losses,
            "step_s": step_s, "grads": grads,
            "index": {n: shards[n][1] for n in grads_of},
-           "launches": {n: k.launches for n, k in kernels.items()},
+           "launches": launches,
            "heads": model.layers[0].self_attn.heads,
            "kv_heads": model.layers[0].self_attn.kv_heads,
            "experts": getattr(model.layers[0].mlp, "experts", None)}
+    if checkpoint is not None:
+        out["checkpoint"] = checkpoint_round_trip(
+            state, step, lambda: _rank_state(
+                mesh, rank, cfg, batch, lr, (seed or 0) + 1, None,
+                param_rules), batch, checkpoint)
     if want_params:
         out["params"] = {n: p.detach().cpu().numpy()
                          for n, p in params.items()}

@@ -1,8 +1,9 @@
-"""ray_tpu_torch.rllib — reinforcement learning, the online algorithms.
+"""ray_tpu_torch.rllib — reinforcement learning, online and offline.
 Port of ray_tpu/rllib (reference: rllib/ new API stack).
 
 PPO (flat and pixel observations), IMPALA, APPO, DQN and SAC, and
-multi-agent PPO over a MultiRLModule (one policy a module id): RLModules
+multi-agent PPO over a MultiRLModule (one policy a module id); offline,
+BC and CQL over logged transitions (``offline.py``). RLModules
 applied to weights with torch.func, learners stepping torch.optim.Adam
 behind optax's global-norm clip, env runners stepping vectorized host envs
 with one batched forward a timestep. Runners and learners live in this
@@ -12,6 +13,8 @@ names another device.
 """
 
 from ray_tpu_torch.rllib.appo import APPO, APPOConfig, APPOLearner
+from ray_tpu_torch.rllib.bc import BC, BCConfig, BCLearnerConfig
+from ray_tpu_torch.rllib.cql import CQL, CQLConfig, CQLLearnerConfig
 from ray_tpu_torch.rllib.dqn import (
     DQN,
     DQNConfig,
@@ -37,6 +40,7 @@ from ray_tpu_torch.rllib.multi_agent import (
     MultiAgentPPOConfig,
     MultiRLModule,
 )
+from ray_tpu_torch.rllib.offline import OfflineData, record_episodes
 from ray_tpu_torch.rllib.ppo import PPO, PPOConfig
 from ray_tpu_torch.rllib.rl_module import ConvActorCriticNet, RLModule
 from ray_tpu_torch.rllib.sac import SAC, SACConfig, SACLearner, SACModule
@@ -53,6 +57,14 @@ __all__ = [
     "APPO",
     "APPOConfig",
     "APPOLearner",
+    "BC",
+    "BCConfig",
+    "BCLearnerConfig",
+    "CQL",
+    "CQLConfig",
+    "CQLLearnerConfig",
+    "OfflineData",
+    "record_episodes",
     "ConvActorCriticNet",
     "SAC",
     "SACConfig",

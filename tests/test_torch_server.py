@@ -186,10 +186,11 @@ def test_port_imports_no_jax_flax_or_ray_tpu():
     """Importing every ray_tpu_torch module (the training slice's
     ray_tpu_torch.train, ray_tpu_torch.parallel with ring attention, the
     pipeline and expert parallelism, the serving rank process's entry
-    module, ray_tpu_torch.rllib with multi-agent PPO and the ResNet among
-    them) and chip_smoke.py's imports
-    loads no jax, flax, optax or ray_tpu; naming a gymnasium env id in an
-    RL config loads no gymnasium either (the card's machine has none)."""
+    module, ray_tpu_torch.rllib with multi-agent PPO, BC and CQL, the
+    ResNet and the checkpoints among them) and chip_smoke.py's imports
+    loads no jax, flax, optax, orbax, pyarrow or ray_tpu; naming a
+    gymnasium env id in an RL config loads no gymnasium either (the card's
+    machine has none)."""
     code = r"""
 import importlib, pkgutil, sys
 import ray_tpu_torch
@@ -212,7 +213,9 @@ for m in ("ray_tpu_torch.train.step", "ray_tpu_torch.parallel.mesh",
           "ray_tpu_torch.rllib.multi_agent",
           "ray_tpu_torch.rllib.examples.chase",
           "ray_tpu_torch.models.resnet", "ray_tpu_torch.models.convert",
-          "ray_tpu_torch.utils.flax_rules"):
+          "ray_tpu_torch.utils.flax_rules", "ray_tpu_torch.rllib.offline",
+          "ray_tpu_torch.rllib.bc", "ray_tpu_torch.rllib.cql",
+          "ray_tpu_torch.train._checkpoint"):
     assert m in sys.modules, m
 import chip_smoke
 from ray_tpu_torch.rllib import DQNConfig, IMPALAConfig, PPOConfig
@@ -220,7 +223,8 @@ for config in (PPOConfig, IMPALAConfig, DQNConfig):
     config().environment("CartPole-v1")
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                    "ray_tpu", "gymnasium"))
+                                    "orbax", "pyarrow", "ray_tpu",
+                                    "gymnasium"))
 assert not bad, bad
 print("clean", len([n for n in sys.modules if n.startswith("ray_tpu_torch")]))
 """

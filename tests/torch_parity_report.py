@@ -3,7 +3,7 @@ module, the max abs error against its JAX counterpart on the same numpy
 inputs, beside the tolerance its test holds it to.
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/torch_parity_report.py \
-        [multi_agent] [resnet]
+        [multi_agent] [resnet] [offline] [checkpoint]
 
 The inputs are those of tests/test_torch_*.py; the Pallas kernels run in
 interpret mode on the CPU. Naming sections prints only their rows;
@@ -821,6 +821,157 @@ def resnet_rows(rows):
                  2e-2))
 
 
+def offline_rows(rows):
+    """rllib/offline.py, bc.py and cql.py on tests/test_torch_offline.py's
+    data and passes."""
+    from test_torch_offline import record, two_blocks
+
+    from ray_tpu.rllib import bc as jbc
+    from ray_tpu.rllib import cql as jcql
+    from ray_tpu.rllib import offline as joff
+    from ray_tpu.rllib.examples import gridworld as jgrid
+    from ray_tpu_torch.models.convert import convert_rl_params
+    from ray_tpu_torch.rllib import bc as tbc
+    from ray_tpu_torch.rllib import cql as tcql
+    from ray_tpu_torch.rllib import offline as toff
+    from ray_tpu_torch.rllib.examples import gridworld as tgrid
+    from ray_tpu_torch.rllib.learner import set_params_
+    from ray_tpu_torch.rllib.rl_module import clone_weights
+
+    differ = 0
+    blocks = {}
+    for expert, kw in ((True, dict(n_episodes=150, seed=0, max_steps=48)),
+                       (False, dict(n_episodes=20, seed=5, max_steps=48))):
+        ref = record(jgrid, joff, expert, **kw)
+        port = record(tgrid, toff, expert, **kw)
+        differ += sum(int((ref[k] != port[k]).sum())
+                      + int(ref[k].dtype != port[k].dtype) for k in ref)
+        blocks.setdefault("expert", port)
+    ds = two_blocks(blocks["expert"])
+    for seed in (0, 1):
+        for g, w in zip(toff.OfflineData(ds).iter_train_batches(
+                batch_size=64, num_epochs=2, seed=seed),
+                joff.OfflineData(ds).iter_train_batches(
+                    batch_size=64, num_epochs=2, seed=seed)):
+            differ += sum(int((g[k] != w[k]).sum()) for k in w)
+    rows.append(("rllib/offline.py `record_episodes` (expert fixture, 20 "
+                 "random episodes), `OfflineData` batches (seeds 0, 1): "
+                 "elements that differ",
+                 "`record_episodes` / `OfflineData`", float(differ), 0.0))
+
+    def conv(tree):
+        return convert_rl_params(jax.tree.map(np.asarray, tree))
+
+    for name, jc, tc, kw in (("bc.py `BC.train`, batch 256 (3 updates)",
+                              jbc.BCConfig, tbc.BCConfig, {}),
+                             ("cql.py `CQL.train`, batch 64 (12 updates, "
+                              "target every 2)", jcql.CQLConfig,
+                              tcql.CQLConfig, {"train_batch_size": 64})):
+        ref = (jc().environment(obs_dim=8, num_actions=4)
+               .offline_data(dataset=ds).training(**kw).build())
+        port = (tc().environment(obs_dim=8, num_actions=4)
+                .offline_data(dataset=ds).training(**kw).build(device="cpu"))
+        set_params_(port.params, conv(ref.params))
+        cql = jc is jcql.CQLConfig
+        if cql:
+            ref.config.learner.target_update_every = 2
+            port.config.learner.target_update_every = 2
+            port.target_params = clone_weights(port.params)
+        r, p = ref.train(), port.train()
+        e = tree_err(port.get_weights(), conv(ref.params))
+        if cql:
+            e = max(e, tree_err(port.target_params, conv(ref.target_params)))
+        ref_name = f"`{name.split('`')[1]}`"
+        rows.append((f"rllib/{name}: loss (relative)", ref_name,
+                     abs(p["loss"] - r["loss"]) / abs(r["loss"]), 1e-5))
+        rows.append((f"the same: weights{' and target' if cql else ''}",
+                     ref_name, e, 1e-4))
+
+
+def checkpoint_rows(rows):
+    """train/_checkpoint.py on tests/test_torch_checkpoint.py's cases."""
+    import shutil
+    import tempfile
+
+    from test_torch_checkpoint import FOUR, LR, _flash, _ids, _register_all
+
+    from ray_tpu.train import _checkpoint as jck
+    from ray_tpu_torch.entry import train_job, train_rank
+    from ray_tpu_torch.parallel.mesh import create_mesh
+    from ray_tpu_torch.train import _checkpoint as tck
+
+    tmp = tempfile.mkdtemp()
+    old = tempfile.tempdir
+    tempfile.tempdir = tmp
+    try:
+        job = train_job([{"shape": FOUR, "cfg": _flash(), "ids": _ids(),
+                          "steps": 2, "lr": LR, "seed": 3,
+                          "checkpoint": os.path.join(tmp, "mesh")}],
+                        device="cpu")
+        differ = 0
+        for i, (attr, order) in enumerate(((None, "max"), ("score", "max"),
+                                           ("score", "min"))):
+            out = []
+            for k, module in enumerate((jck, tck)):
+                root = os.path.join(tmp, f"manager{i}_{k}")
+                os.makedirs(os.path.join(root, "store", "checkpoint_000004"))
+                srcs = []
+                for j in range(5):
+                    os.makedirs(os.path.join(root, f"s{j}"))
+                    srcs.append(os.path.join(root, f"s{j}"))
+                mgr = _register_all(module, os.path.join(root, "store"),
+                                    srcs, attr, order)
+                out.append((sorted(os.listdir(os.path.join(root, "store"))),
+                            os.path.basename(mgr.latest.path),
+                            os.path.basename(mgr.best.path), mgr._index))
+            differ += int(out[0] != out[1])
+        rows.append(("train/_checkpoint.py `CheckpointManager`, 5 "
+                     "registrations over an existing checkpoint, keep 2, "
+                     "by age / max / min: cases whose survivors, latest, "
+                     "best or numbering differ",
+                     "`CheckpointManager`", float(differ), 0.0))
+
+        cfg = tllama.LlamaConfig.tiny()
+        jm = jllama.LlamaModel(jllama.LlamaConfig.tiny())
+        opt = optax.adamw(LR)
+        ids = jnp.asarray(_ids())
+        jstate = jstep.init_train_state(jm, opt, ids)
+        sd = convert_params(jax.tree.map(np.asarray, jstate.params))
+        res = train_rank(create_mesh({"data": 1}, devices=["cpu"]), 0, cfg,
+                         _ids(), 2, LR, state_dict=sd, want_params=True,
+                         checkpoint=os.path.join(tmp, "one"))
+        fn = jstep.make_train_step(jm, opt, donate=False)
+        for _ in range(2):
+            jstate, _ = fn(jstate, ids, ids)
+        jstate = jck.load_pytree(jck.save_pytree(
+            jstate, os.path.join(tmp, "ref")), target=jstate)
+        jstate, jloss = fn(jstate, ids, ids)
+        ck = res["checkpoint"]
+        want = convert_params(jax.tree.map(np.asarray, jstate.params))
+        ranks = [r[0]["checkpoint"] for r in job.results(300)]
+        rows.append(("train/_checkpoint.py round trip after 2 AdamW steps "
+                     "of the tiny f32 Llama, then a step: states whose "
+                     "loss, weights or moments differ from the continued "
+                     "one's, on one device / on each of 4 gloo ranks at "
+                     "`{\"fsdp\": 2, \"tensor\": 2}`",
+                     "(the port without the round trip)",
+                     float(not ck["equal"])
+                     + sum(not c["equal"] for c in ranks), 0.0))
+        rows.append(("the same on one device against the reference's 3 "
+                     "steps with its orbax round trip: loss (relative)",
+                     "`save_pytree`/`load_pytree` + `make_train_step`",
+                     abs(ck["loss"] - float(jloss)) / abs(float(jloss)),
+                     1e-5))
+        rows.append(("the same: weights",
+                     "`save_pytree`/`load_pytree` + `make_train_step`",
+                     max(err(p, want[n]) for n, p in res["params"].items()),
+                     1e-4))
+    finally:
+        job.close()
+        tempfile.tempdir = old
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def resnet50_bf16_distance():
     """The reference's bf16 logits against its f32 logits (relative
     Frobenius, training mode) for resnet50ish at chip_smoke.py's
@@ -883,7 +1034,8 @@ def resnet50_grad_noise():
 def main():
     import sys
 
-    sections = {"multi_agent": multi_agent_rows, "resnet": resnet_rows}
+    sections = {"multi_agent": multi_agent_rows, "resnet": resnet_rows,
+                "offline": offline_rows, "checkpoint": checkpoint_rows}
     names = sys.argv[1:]
     if names == ["resnet50_bf16"]:
         return resnet50_bf16_distance()

@@ -3,6 +3,7 @@
 
     JAX_PLATFORMS=cpu python tests/torch_rllib_seed_report.py 0 1 2 3
     JAX_PLATFORMS=cpu python tests/torch_rllib_seed_report.py chase 0 1 2 3
+    JAX_PLATFORMS=cpu python tests/torch_rllib_seed_report.py offline 0 1 2
 
 Runs the reference's pixel learning config
 (tests/test_rllib_sac_pixels.py:66-92: 8 envs of the 84x84 gridworld,
@@ -25,6 +26,16 @@ MultiAgentPPO (``build(device="cpu")``, evaluated by chip_smoke.py's
 ``chase_vs_random``) and through the reference's MultiAgentPPO with its
 runners called in this process instead of as actors (its training_step as
 it is; evaluated by the test's ``_eval_vs_random``).
+
+``offline`` runs the offline learning tests instead
+(tests/test_rllib_offline.py:61-93, on their data: GridWorldEnv(size=6,
+seed=3), 150 expert episodes at seed 0, max_steps 48, held in memory): BC
+at lr 3e-3, batch 256, 12 passes, then a mean return over 15 episodes
+above 0.5 and above its untrained return + 0.3; CQL at lr 1e-3, batch 64,
+alpha 1, its target copied every 20 updates, 40 passes, then above 0.3.
+The seed is the configs' (the init and the shuffles; the data is the
+same), through ray_tpu_torch's BC and CQL (``build(device="cpu")``) and
+the reference's, with chip_smoke.py's ``offline_learning``.
 """
 
 import sys
@@ -190,9 +201,43 @@ def chase_main(seeds):
     print({k: f"{v} of {len(seeds)}" for k, v in passed.items()})
 
 
+def offline_main(seeds):
+    import os
+
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+
+    from ray_tpu.rllib import bc as jbc
+    from ray_tpu.rllib import cql as jcql
+    from ray_tpu_torch.rllib import bc as tbc
+    from ray_tpu_torch.rllib import cql as tcql
+
+    torch.set_num_threads(2)
+    data = chip_smoke.offline_dataset()
+    passed = {"port": 0, "reference": 0}
+    for seed in seeds:
+        for name, bc_mod, cql_mod, kw in (
+                ("port", tbc, tcql, {"device": "cpu"}),
+                ("reference", jbc, jcql, {})):
+            bc, cql = chip_smoke.offline_configs(bc_mod, cql_mod, data, seed)
+            out = chip_smoke.offline_learning(bc.build(**kw),
+                                              cql.build(**kw))
+            passed[name] += out["passed"]
+            print(f"{name:9s} seed {seed}: BC "
+                  f"{out['bc_untrained_return']:+.3f} -> "
+                  f"{out['bc_return']:+.3f}, CQL {out['cql_return']:+.3f}"
+                  f" {'pass' if out['passed'] else 'FAIL'}", flush=True)
+    print({k: f"{v} of {len(seeds)}" for k, v in passed.items()})
+
+
 if __name__ == "__main__":
     args = sys.argv[1:]
     if args[:1] == ["chase"]:
         chase_main([int(s) for s in args[1:]] or list(range(8)))
+    elif args[:1] == ["offline"]:
+        offline_main([int(s) for s in args[1:]] or list(range(8)))
     else:
         main([int(s) for s in args] or [0, 1, 2, 3])
